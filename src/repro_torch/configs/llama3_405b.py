@@ -1,0 +1,15 @@
+"""Llama-3 405B [arXiv:2407.21783; unverified]. Dense GQA, 128k vocab."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="llama3-405b",
+    family="dense",
+    num_layers=126,
+    d_model=16384,
+    num_heads=128,
+    num_kv_heads=8,
+    d_ff=53248,
+    vocab_size=128256,
+    rope_theta=500_000.0,
+    source="arXiv:2407.21783; unverified",
+))

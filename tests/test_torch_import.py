@@ -1,0 +1,64 @@
+"""The port stands alone: importing it loads no JAX and nothing of ``repro``,
+and no file of it (nor ``chip_smoke.py``) imports them or calls a library
+attention kernel."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+CHECKED_FILES = PORT_FILES + ["chip_smoke.py"]
+
+
+def _is_forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_import_loads_no_jax_or_repro():
+    """Import the package and every submodule in a fresh interpreter."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps({'n': len(names), 'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["n"] >= 20          # configs, kernels, models, core, launch
+    assert out["bad"] == []
+
+
+@pytest.mark.parametrize("path", CHECKED_FILES)
+def test_source_imports_no_jax_or_repro(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_is_forbidden(n) for n in names), (path, names)
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_calls_no_library_attention_or_compiler(path):
+    """SDPA, cuDNN and torch.compile may time a yardstick in chip_smoke.py,
+    never run in the port."""
+    text = (ROOT / path).read_text()
+    for word in ("scaled_dot_product_attention", "torch.compile", "cudnn",
+                 "flash_attn"):
+        assert word not in text, (path, word)
