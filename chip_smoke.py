@@ -8,17 +8,30 @@ Phases, in order; any failure propagates and the exit code is non-zero:
 1. set-up: build every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once), print the card's name and power
    limit, turn TF32 off;
-2. each kernel against its plain PyTorch version on the card, at the serving
-   path's shape and at GQA / window / f32 / ragged / lane-masked cases, and
-   timed beside its bound and the PyTorch library call;
-3. a small reference: a narrow f32 model served on the card (kernel path)
-   and on the CPU (chunked path) from the same parameters must agree;
-4. the main path: ``BatchServer`` serving 8 requests on full-width
-   StableLM-2 1.6B (random weights from a seed), with every kernel's launch
-   count read around that run, then the same requests with
-   ``adaptive_lanes``;
-5. where the time goes: device time by kernel and the device's idle share
-   for one prefill and one 4-lane decode step (torch.profiler).
+2. [kernel] each kernel against its plain PyTorch version on the card:
+   flash attention (B3) at the serving path's shape and at GQA / window /
+   f32 / ragged / lane-masked cases; the packed GEMM (B1) at the reference
+   test shapes, strided and lane-masked; the RMSNorm pair (B2 lane-batched,
+   B5 rows), masked, and B2's lanes against B5 bit for bit; each timed
+   beside its bound and, where one exists, a PyTorch library call;
+3. [small] a narrow f32 model served on the card (kernel path) and on the
+   CPU (chunked path) from the same parameters must agree;
+4. [serve] the serving path: ``BatchServer`` serving 8 requests on
+   full-width StableLM-2 1.6B (random weights from a seed), with every
+   kernel's launch count read around that run, then the same requests with
+   ``adaptive_lanes``; [profile] device time by kernel and the device's idle
+   share for one prefill and one 4-lane decode step (torch.profiler);
+5. [train-lenet] the paper's workflow: a triples plan, the profile of one
+   LeNet-4 step at batch 64, 8 packed lanes with per-lane learning rates,
+   a ``RefillExecutor`` over 24 tasks in "where" and "compact" mode, a
+   drain to a ``PoolSnapshot`` resumed at capacity 4, and the packed step
+   time against concurrency (the paper's Figs 4-5);
+6. [train-kernel] the lane pool's "kernel" mode: ``LanePool(exec_mode=
+   "kernel")`` running the reference's pool-level step, whose two GEMMs
+   go through B1, at J=16 and three occupancies, with every kernel's
+   launch count read around that run; then where / compact / kernel step
+   times; [profile] the idle share of one LeNet pool step and one
+   kernel-mode step.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -51,8 +64,32 @@ BF16_MAX_ABS = 2e-2
 # plain version: 24 layers of bf16 rounding on both sides
 LOGIT_ATOL_BF16 = 0.25
 SMALL_LOGIT_ATOL_F32 = 1e-4
+# packed GEMM and RMSNorm vs their plain versions. f32: F32_TOL (two
+# summation orders). bf16: both compute in f32 and round the output once,
+# so they may land one bf16 ulp apart; an ulp is at most 2^-7 of the value,
+# so |kernel - plain| <= 2^-7 |plain| + 1e-3 elementwise
+BF16_ULP_REL = 2.0 ** -7
+BF16_ULP_ABS = 1e-3
+# LeNet-4 per-task losses, "where" vs "compact" and a resume at capacity 4
+# vs the uninterrupted run: cuBLAS may pick another algorithm for another
+# batch count (ROADMAP C3), so allclose, with the bit-equal count printed
+LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
+# kernel-mode pool state vs "where" mode: another program computes the
+# step (the reference's own bound, benchmarks/bench_kernels.py:124)
+MODE_TOL = dict(rtol=2e-5, atol=2e-5)
 
 N_LAYERS_FULL = 24
+# kernel shapes (J, M, K, N) and (J, rows, d): the lane pool's kernel-mode
+# step (J=16, d=o=nb=256, benchmarks/bench_kernels.py:164-166), one
+# StableLM-2 MLP up-projection per lane, and one StableLM-2 row norm
+POOL_GEMM = (16, 256, 256, 256)
+MLP_GEMM = (4, 512, 2048, 5632)
+POOL_NORM = (16, 256, 256)
+WIDE_NORM = (4, 2048, 2048)
+ROW_NORM = (1, 1024, 2048)
+# the kernel-mode pool: J, d, o, nb (benchmarks/bench_kernels.py:164-166)
+KERNEL_POOL = (16, 256, 256, 256)
+LENET_BATCH = 64            # the paper's batch (§III-A)
 
 
 def log(*a):
@@ -71,6 +108,24 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: the summed durations of the kernels it
+    launches, from a torch.profiler trace of ``iters`` warm calls. Unlike
+    ``cuda_time_ms`` it leaves out the host's launch overhead, which sets
+    the event time of a short kernel behind a Python wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +158,37 @@ def setup() -> str:
 # phase 2: kernel vs plain version
 # ---------------------------------------------------------------------------
 
+def bound_ms(flops: float, nbytes: float, peak_flops: float):
+    """The least time for the work: the larger of the operations at the
+    peak rate and the bytes (each input read once, each output written
+    once) at the memory rate. Returns (ms, what sets it)."""
+    t_ops = flops / peak_flops
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel's CUDA wrapper (each carries a ``launches`` count), by
+    the name the kernels JSON gives it."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_rmsnorm as rn
+    from repro_torch.kernels import packed_gemm as pg
+    return {"flash_attention_fwd": fa.flash_attention_cuda,
+            "packed_gemm": pg.packed_gemm_cuda,
+            "packed_rmsnorm": rn.packed_rmsnorm_cuda,
+            "fused_rmsnorm": rn.fused_rmsnorm_cuda}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
 def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, window, dtype):
     """Least time for the function on these inputs: the larger of the FLOPs
     of the unmasked (q, k) pairs at the dtype's peak and the bytes of q, k,
@@ -117,10 +203,7 @@ def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, window, dtype):
         mask &= q_pos - k_pos < window
     flops = 4 * B * Hq * D * int(mask.sum())
     nbytes = (2 * B * Sq * Hq + 2 * B * Sk * Hkv) * D * dtype.itemsize
-    t_ops = flops / PEAK_FLOPS[str(dtype)]
-    t_bytes = nbytes / PEAK_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound_ms(flops, nbytes, PEAK_FLOPS[str(dtype)])
 
 
 def _qkv(gen, B, Sq, Sk, Hq, Hkv, D, dtype):
@@ -203,8 +286,215 @@ def check_flash_attention() -> dict:
             "library_ms": library_ms}
 
 
+def _agree(out, ref) -> tuple:
+    """(kernel agrees with its plain version, max abs error)."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        ok = torch.allclose(out, ref, **F32_TOL)
+    else:
+        ok = bool((err <= BF16_ULP_REL * ref.float().abs()
+                   + BF16_ULP_ABS).all())
+    return ok and bool(torch.isfinite(out).all()), err.max().item()
+
+
+def _tol_text(dtype) -> str:
+    import torch
+    return (f"rtol=atol={F32_TOL['rtol']}" if dtype == torch.float32
+            else f"<= 2^-7|plain| + {BF16_ULP_ABS}")
+
+
+def _check_lanes(masked, dense, active, what: str) -> None:
+    import torch
+    for lane, a in enumerate(active):
+        want = dense[lane] if a else torch.zeros_like(dense[lane])
+        if not torch.equal(masked[lane], want):
+            raise AssertionError(f"{what}: lane {lane} (active={a}) is not "
+                                 f"{'the dense result' if a else 'zeros'}")
+
+
+def check_packed_gemm() -> dict:
+    """B1 against its plain version at the reference test shapes and the
+    pool step's shape, through a transposed view, and lane-masked; then
+    timed at the pool step's shape (the record) and at one StableLM-2 MLP
+    up-projection per lane."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_gemm as pg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mk = lambda *s, dt: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    for dt in (f32, bf16):
+        for J, M, K, N in ((4, 64, 64, 64), (3, 50, 70, 30), (8, 128, 32, 16),
+                           (1, 16, 16, 16), POOL_GEMM):
+            x, w = mk(J, M, K, dt=dt), mk(J, K, N, dt=dt)
+            out = pg.packed_gemm_cuda(x, w)
+            torch.cuda.synchronize()
+            ok, err = _agree(out, pg.packed_gemm_plain(x, w))
+            errs[(J, M, K, N, str(dt))] = err
+            log(f"[kernel] packed_gemm ({J},{M},{K},{N}) {dt}: max_abs_err "
+                f"{err:.3g} ({_tol_text(dt)})")
+            if not ok:
+                raise AssertionError(f"packed_gemm ({J},{M},{K},{N}) {dt}: "
+                                     f"kernel disagrees with its plain "
+                                     f"version (max err {err})")
+    # the gradient GEMM's x^T: a strided view, read without a copy
+    x, e = mk(16, 256, 128, dt=f32), mk(16, 256, 64, dt=f32)
+    xt = x.transpose(1, 2)
+    out = pg.packed_gemm_cuda(xt, e)
+    ok, err = _agree(out, pg.packed_gemm_plain(xt, e))
+    same = torch.equal(out, pg.packed_gemm_cuda(xt.contiguous(), e))
+    log(f"[kernel] packed_gemm x^T view {tuple(xt.shape)} strides "
+        f"{xt.stride()}: max_abs_err {err:.3g}, equal to the contiguous "
+        f"copy {same}")
+    if not (ok and same):
+        raise AssertionError("packed_gemm: transposed view disagrees")
+    for dt in (f32, bf16):
+        x, w = mk(4, 64, 64, dt=dt), mk(4, 64, 64, dt=dt)
+        dense = ops.packed_matmul(x, w)
+        for active in ((1, 0, 1, 0), (0, 0, 0, 1), (1, 1, 1, 1)):
+            masked = ops.packed_matmul(x, w, active=torch.tensor(
+                active, device="cuda"))
+            _check_lanes(masked, dense, active, f"packed_gemm {dt}")
+        log(f"[kernel] packed_gemm masked {dt}: inactive lanes exact zeros, "
+            f"active lanes bit-identical, for (1,0,1,0) (0,0,0,1) (1,1,1,1)")
+
+    timed = {}
+    for label, (J, M, K, N), dt in (("pool step", POOL_GEMM, f32),
+                                    ("MLP up-projection", MLP_GEMM, bf16)):
+        x, w = mk(J, M, K, dt=dt), mk(J, K, N, dt=dt)
+        ms = cuda_time_ms(lambda: pg.packed_gemm_cuda(x, w))
+        dev_ms = device_ms(lambda: pg.packed_gemm_cuda(x, w))
+        plain_ms = cuda_time_ms(lambda: pg.packed_gemm_plain(x, w))
+        library_ms = cuda_time_ms(lambda: torch.bmm(x, w))
+        b_ms, b_by = bound_ms(2 * J * M * K * N,
+                              (J * M * K + J * K * N + J * M * N)
+                              * dt.itemsize, PEAK_FLOPS[str(dt)])
+        timed[label] = (ms, plain_ms, library_ms, b_ms, b_by)
+        log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt}: kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"torch.bmm "
+            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    ms, plain_ms, library_ms, b_ms, b_by = timed["pool step"]
+    return {"name": "packed_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/packed_gemm.cu",
+            "replaces": "src/repro/kernels/packed_gemm.py:69",
+            "launches": None,
+            "max_abs_err": errs[POOL_GEMM + ("torch.float32",)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms}
+
+
+def _norm_bound(x, w) -> tuple:
+    """RMSNorm: ~4 f32 operations per element; x and w read, out written."""
+    return bound_ms(4 * x.numel(), (2 * x.numel() + w.numel())
+                    * x.element_size(), PEAK_FLOPS["torch.float32"])
+
+
+def check_rmsnorm() -> list:
+    """B2 and B5 against their plain versions, B2's masks, B2's active
+    lanes against B5 on each slice bit for bit, and their times. Returns
+    the two records; their launches are those of the mask and identity
+    checks, made through the entry points (``ops.packed_norm`` and
+    ``fused_rmsnorm.fused_rmsnorm``), since neither kernel is on a path of
+    the port yet."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_rmsnorm as rn
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mk = lambda *s, dt: torch.randn(*s, generator=gen, device="cuda").to(dt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    for dt in (f32, bf16):
+        for J, rows, d in ((4, 16, 32), POOL_NORM, (3, 7, 100), WIDE_NORM):
+            x, w = mk(J, rows, d, dt=dt), (1 + 0.1 * mk(J, d, dt=f32)).to(dt)
+            out = rn.packed_rmsnorm_cuda(x, w)
+            torch.cuda.synchronize()
+            ok, err = _agree(out, rn.packed_rmsnorm_plain(x, w))
+            errs[("packed", J, rows, d, str(dt))] = err
+            log(f"[kernel] packed_rmsnorm ({J},{rows},{d}) {dt}: max_abs_err "
+                f"{err:.3g} ({_tol_text(dt)})")
+            if not ok:
+                raise AssertionError(f"packed_rmsnorm ({J},{rows},{d}) {dt}: "
+                                     f"kernel disagrees (max err {err})")
+        for shape in (ROW_NORM, (16, 32), (5, 7, 130)):
+            x, w = mk(*shape, dt=dt), (1 + 0.1 * mk(shape[-1], dt=f32)).to(dt)
+            out = rn.fused_rmsnorm_cuda(x, w)
+            torch.cuda.synchronize()
+            ok, err = _agree(out, rn.fused_rmsnorm_plain(x, w))
+            errs[("fused",) + shape + (str(dt),)] = err
+            log(f"[kernel] fused_rmsnorm {shape} {dt}: max_abs_err "
+                f"{err:.3g} ({_tol_text(dt)})")
+            if not ok:
+                raise AssertionError(f"fused_rmsnorm {shape} {dt}: kernel "
+                                     f"disagrees (max err {err})")
+
+    reset_launches()
+    for dt in (f32, bf16):
+        x, w = mk(4, 256, 256, dt=dt), (1 + 0.1 * mk(4, 256, dt=f32)).to(dt)
+        dense = ops.packed_norm(x, w)
+        for active in ((1, 0, 1, 0), (0, 0, 0, 1), (1, 1, 1, 1)):
+            masked = ops.packed_norm(x, w, active=torch.tensor(
+                active, device="cuda"))
+            _check_lanes(masked, dense, active, f"packed_rmsnorm {dt}")
+        for j in range(4):
+            if not torch.equal(dense[j], rn.fused_rmsnorm(x[j], w[j])):
+                raise AssertionError(f"packed_rmsnorm {dt}: lane {j} differs "
+                                     f"from fused_rmsnorm on its slice")
+        log(f"[kernel] packed_rmsnorm masked {dt}: inactive lanes exact "
+            f"zeros, active lanes bit-identical, every lane == fused_rmsnorm "
+            f"on its slice bit for bit")
+    launches = read_launches()
+
+    records = []
+    for label, (J, rows, d), dt in (("pool", POOL_NORM, f32),
+                                    ("wide", WIDE_NORM, bf16)):
+        x, w = mk(J, rows, d, dt=dt), (1 + 0.1 * mk(J, d, dt=f32)).to(dt)
+        ms = cuda_time_ms(lambda: rn.packed_rmsnorm_cuda(x, w))
+        dev_ms = device_ms(lambda: rn.packed_rmsnorm_cuda(x, w))
+        plain_ms = cuda_time_ms(lambda: rn.packed_rmsnorm_plain(x, w))
+        b_ms, b_by = _norm_bound(x, w)
+        log(f"[kernel] packed_rmsnorm {label} {tuple(x.shape)} {dt}: kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"no library call "
+            f"(per-lane weights), bound {b_ms:.4f} ms ({b_by})")
+        if label == "pool":
+            records.append({
+                "name": "packed_rmsnorm", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "replaces": "src/repro/kernels/fused_rmsnorm.py:76",
+                "launches": launches["packed_rmsnorm"],
+                "max_abs_err": errs[("packed",) + POOL_NORM
+                                    + ("torch.float32",)],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None})
+    x, w = mk(*ROW_NORM, dt=bf16), (1 + 0.1 * mk(ROW_NORM[-1], dt=f32)).to(
+        bf16)
+    ms = cuda_time_ms(lambda: rn.fused_rmsnorm_cuda(x, w))
+    dev_ms = device_ms(lambda: rn.fused_rmsnorm_cuda(x, w))
+    plain_ms = cuda_time_ms(lambda: rn.fused_rmsnorm_plain(x, w))
+    library_ms = cuda_time_ms(
+        lambda: F.rms_norm(x, (ROW_NORM[-1],), w, eps=1e-5))
+    b_ms, b_by = _norm_bound(x, w)
+    log(f"[kernel] fused_rmsnorm {ROW_NORM} bf16: kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, F.rms_norm "
+        f"{library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    records.append({
+        "name": "fused_rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/fused_rmsnorm.py:33",
+        "launches": launches["fused_rmsnorm"],
+        "max_abs_err": errs[("fused",) + ROW_NORM + ("torch.bfloat16",)],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms})
+    return records
+
+
 # ---------------------------------------------------------------------------
-# phases 3-5: serving
+# phases 3-4: serving
 # ---------------------------------------------------------------------------
 
 def make_requests(seed: int, n: int, prompt_range, new_range, vocab: int):
@@ -256,7 +546,6 @@ def serve_full(record: dict):
     (model, params, longest prompt) for the profile."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import BatchServer
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ParallelCtx
@@ -274,12 +563,12 @@ def serve_full(record: dict):
     total_new = sum(r.max_new for r in reqs)
     srv = BatchServer(model, params, batch_lanes=4, max_len=2048)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = srv.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention_cuda.launches
+    launches = read_launches()["flash_attention_fwd"]
     record["launches"] = launches
     st = srv.stats
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -338,12 +627,48 @@ def serve_full(record: dict):
     return model, params, max((r.prompt for r in reqs), key=len)
 
 
-def profile_serving(model, params, prompt: np.ndarray) -> None:
-    """Device time by kernel and the device's idle share for one prefill of
-    ``prompt`` and one 4-lane decode step, from a torch.profiler trace (the
-    sum of kernel durations against the host clock around each call)."""
+def profile_calls(calls) -> None:
+    """For each (label, fn): the host-clock wall time of a warm call (median
+    of 3, unprofiled), the sum of kernel durations in a torch.profiler trace
+    of one call, the device's idle share (1 - kernels / wall), and the top
+    kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    for label, fn in calls:
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall_ms = float(np.median(walls[1:]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+        busy_ms = sum(ms for ms, _ in by_name.values())
+        launches = sum(n for _, n in by_name.values())
+        if launches == 0:
+            raise AssertionError(f"profile {label}: no kernel ran on the card")
+        log(f"[profile] {label}: wall {wall_ms:.2f} ms (median of 3, "
+            f"unprofiled), kernels {busy_ms:.2f} ms in {launches} "
+            f"launches, device idle {1 - busy_ms / wall_ms:.3f}")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        for name, (ms, n) in top:
+            log(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} "
+                f"{name[:70]}")
+
+
+def profile_serving(model, params, prompt: np.ndarray) -> None:
+    """Device time by kernel and the device's idle share for one prefill of
+    ``prompt`` and one 4-lane decode step (``profile_calls``)."""
+    import torch
     from repro_torch.core import packing
     from repro_torch.launch.serve import LANE_AXIS
     toks = torch.from_numpy(prompt[None]).cuda()
@@ -358,33 +683,322 @@ def profile_serving(model, params, prompt: np.ndarray) -> None:
             ("prefill", lambda: model.prefill(params, {"tokens": toks},
                                               max_len=2048)),
             ("decode", lambda: model.decode_step(params, step, pool)))
-        for label, fn in calls:
-            walls = []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
+        profile_calls(calls)
+
+
+# ---------------------------------------------------------------------------
+# phases 5-6: training
+# ---------------------------------------------------------------------------
+
+def lenet_step(opt):
+    """The paper's per-task step: one SGD step of LeNet-4 (one lane)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.models import lenet
+
+    def step(params, opt_state, batch, lr):
+        g, loss = torch.func.grad_and_value(lenet.loss)(params, batch)
+        upd, opt_state = opt.update(g, opt_state, params, lr)
+        return optim.apply_updates(params, upd), opt_state, {"loss": loss}
+    return step
+
+
+def _run_refill(pool, tasks, **kw):
+    """Per-task losses, stats and the executor of one RefillExecutor run."""
+    from repro_torch.core.lanepool import RefillExecutor
+    losses: dict = {}
+
+    def on_metrics(t, s, m):
+        losses.setdefault(t.id, []).append(float(m["loss"]))
+        return False
+    ex = RefillExecutor(pool, on_metrics=on_metrics, **kw)
+    t0 = time.perf_counter()
+    stats = ex.run(tasks)
+    return losses, stats, ex, time.perf_counter() - t0
+
+
+def _compare_losses(label: str, got: dict, want: dict) -> None:
+    flat_g = np.concatenate([np.float32(got[t]) for t in sorted(want)])
+    flat_w = np.concatenate([np.float32(want[t]) for t in sorted(want)])
+    equal = int((flat_g == flat_w).sum())
+    diff = float(np.abs(flat_g - flat_w).max())
+    log(f"[train-lenet] {label}: {equal}/{flat_w.size} per-task losses "
+        f"bit-equal, max diff {diff:.3g} (allclose rtol=atol="
+        f"{LOSS_TOL['rtol']})")
+    if sorted(got) != sorted(want) or flat_g.shape != flat_w.shape:
+        raise AssertionError(f"{label}: tasks or step counts differ")
+    if not (np.isfinite(flat_g).all()
+            and np.allclose(flat_g, flat_w, **LOSS_TOL)):
+        raise AssertionError(f"{label}: per-task losses differ by {diff}")
+
+
+def train_lenet() -> tuple:
+    """The paper's workflow on the card (examples/quickstart.py and
+    benchmarks/bench_mnist_sharing.py of the reference) at its batch of 64.
+    Returns a full 8-lane "where" pool and its batch, for the profile."""
+    import tempfile
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import packing
+    from repro_torch.core.lanepool import LanePool, LaneTask, PoolSnapshot
+    from repro_torch.core.lanepool import rehydrate
+    from repro_torch.core.monitor import profile_fn
+    from repro_torch.core.triples import NodeSpec, Triples, plan
+    from repro_torch.data.mnist import synthetic_mnist
+    from repro_torch.models import lenet
+    dev = "cuda"
+    node = NodeSpec(chips_per_node=1, hbm_per_chip=80e9)
+    trip = Triples(nnode=1, nppn=8, ntpp=1)
+    p = plan(8, trip, node)
+    log(f"[train-lenet] plan(8, {trip}, 1 chip of 80 GB): pack factor "
+        f"{p.pack_factor} tasks/chip, sharing {trip.is_sharing(node)}, "
+        f"chip load {p.chip_load()}")
+    if p.pack_factor != 8 or p.chip_load() != {(0, 0): 8}:
+        raise AssertionError("triples plan: 8 tasks should share the chip")
+
+    opt = optim.sgd()
+    step = lenet_step(opt)
+    init = lambda seed: lenet.init(torch.Generator(device=dev).manual_seed(
+        seed))
+
+    def batch(seed, s):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in synthetic_mnist(LENET_BATCH, s, seed=seed).items()}
+
+    p0 = init(0)
+    prof = profile_fn(step, p0, opt.init(p0), batch(0, 0),
+                      torch.tensor(0.05, device=dev))
+    log(f"[train-lenet] one LeNet-4 step at batch {LENET_BATCH}: "
+        f"{prof.flops / 1e6:.1f} MFLOP, resident {prof.resident_bytes / 1e6:.2f}"
+        f" MB (arguments {prof.argument_bytes / 1e6:.2f}, temporaries "
+        f"{prof.temp_bytes / 1e6:.2f}, outputs {prof.output_bytes / 1e6:.2f});"
+        f" 8 packed {8 * prof.resident_bytes / 1e6:.1f} MB, fits 80 GB "
+        f"{prof.fits(80e9 / 8)}")
+    if not (prof.flops > 0 and prof.temp_bytes > 0 and prof.fits(80e9 / 8)):
+        raise AssertionError("profile_fn: no FLOPs or temporaries measured")
+
+    jobs = packing.PackedJobs.create(
+        lenet.init, opt.init, step, torch.Generator(device=dev).manual_seed(0),
+        n_lanes=8, hparams=torch.tensor([0.01 * (i + 1) for i in range(8)],
+                                        device=dev))
+    means = []
+    for s in range(10):
+        m = jobs.run_step(packing.stack_trees([batch(i, s) for i in range(8)]))
+        if not torch.isfinite(m["loss"]).all():
+            raise AssertionError(f"PackedJobs step {s}: non-finite losses")
+        means.append(float(m["loss"].mean()))
+    log(f"[train-lenet] PackedJobs, 8 lanes, lr 0.01*(i+1), 10 steps: mean "
+        f"loss {means[0]:.4f} -> {means[-1]:.4f}; final per-lane "
+        f"{[round(float(x), 3) for x in m['loss']]}")
+    if not means[-1] < means[0]:
+        raise AssertionError("PackedJobs: the mean loss did not fall")
+
+    budgets = [int(b) for b in np.random.default_rng(0).integers(2, 13, 24)]
+
+    def tasks():
+        return [LaneTask(id=i, hparams=torch.tensor(0.01 * (1 + i % 8),
+                                                    device=dev),
+                         init_fn=lambda i=i: (lambda q: (q, opt.init(q)))(
+                             init(100 + i)),
+                         batch_fn=lambda s, i=i: synthetic_mnist(
+                             LENET_BATCH, s, seed=i),
+                         steps=b) for i, b in enumerate(budgets)]
+
+    def pool(cap, mode="where"):
+        tmpl = init(0)
+        return LanePool(cap, step, template_params=tmpl,
+                        template_opt=opt.init(tmpl),
+                        template_hparams=torch.tensor(0.0, device=dev),
+                        exec_mode=mode)
+
+    runs = {}
+    for mode in ("where", "compact"):
+        losses, stats, _, wall = _run_refill(pool(8, mode), tasks())
+        runs[mode] = losses
+        log(f"[train-lenet] RefillExecutor {mode}, 24 tasks, budgets "
+            f"{min(budgets)}-{max(budgets)} (sum {sum(budgets)}), capacity "
+            f"8: lane_steps {stats.lane_steps}, global_steps "
+            f"{stats.global_steps}, mean active lanes {stats.occupancy:.2f}, "
+            f"n_traces {stats.n_traces}, wall {wall:.2f} s")
+        if stats.lane_steps != sum(budgets):
+            raise AssertionError(f"{mode}: lane_steps {stats.lane_steps} != "
+                                 f"sum of budgets {sum(budgets)}")
+        if stats.n_traces > (1 if mode == "where" else 4):
+            raise AssertionError(f"{mode}: {stats.n_traces} step programs")
+    _compare_losses("where vs compact", runs["compact"], runs["where"])
+
+    first, st1, ex1, _ = _run_refill(
+        pool(8), tasks(), should_preempt=lambda st: st.global_steps == 5)
+    if not (st1.preempted and ex1.snapshot.lanes):
+        raise AssertionError("the run did not drain at global step 5")
+    with tempfile.TemporaryDirectory() as tmp:
+        ex1.snapshot.save(tmp, step=5)
+        tmpl = init(0)
+        snap = PoolSnapshot.load(tmp, tmpl, opt.init(tmpl),
+                                 torch.tensor(0.0, device=dev))
+    rest, st2, _, _ = _run_refill(pool(4), rehydrate(snap, tasks()))
+    resumed = {t: first.get(t, []) + rest.get(t, []) for t in runs["where"]}
+    log(f"[train-lenet] preempted at global step 5 ({len(snap.lanes)} lanes "
+        f"in flight, {len(snap.queued)} queued), saved, loaded, resumed at "
+        f"capacity 4: lane_steps {st1.lane_steps} + {st2.lane_steps}; final "
+        f"losses of tasks 0-3 {[round(resumed[t][-1], 4) for t in range(4)]}"
+        f" vs {[round(runs['where'][t][-1], 4) for t in range(4)]}")
+    if st1.lane_steps + st2.lane_steps != sum(budgets):
+        raise AssertionError("resume: lane steps lost or repeated")
+    _compare_losses("resumed at capacity 4 vs uninterrupted", resumed,
+                    runs["where"])
+
+    # the paper's Figs 4-5: packed step time against concurrency
+    times = {}
+    for conc in (1, 2, 4, 8, 12, 24):
+        gen = torch.Generator(device=dev).manual_seed(conc)
+        params = packing.pack_init(lenet.init, [gen] * conc)
+        ostate = packing.stack_trees([opt.init(packing.lane_slice(params, i))
+                                      for i in range(conc)])
+        b = packing.stack_trees([batch(i, 0) for i in range(conc)])
+        lrs = torch.full((conc,), 0.05, device=dev)
+        packed = packing.packed_step(step)
+        walls = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, ostate, _ = packed(params, ostate, b, lrs)
+            torch.cuda.synchronize()
+            if i >= 2:
                 walls.append(1e3 * (time.perf_counter() - t0))
-            wall_ms = float(np.median(walls[1:]))
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            by_name: dict = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    ms, n = by_name.get(e.name, (0.0, 0))
-                    by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                       n + 1)
-            busy_ms = sum(ms for ms, _ in by_name.values())
-            launches = sum(n for _, n in by_name.values())
-            log(f"[profile] {label}: wall {wall_ms:.2f} ms (median of 3, "
-                f"unprofiled), kernels {busy_ms:.2f} ms in {launches} "
-                f"launches, device idle {1 - busy_ms / wall_ms:.3f}")
-            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-            for name, (ms, n) in top:
-                log(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} "
-                    f"{name[:70]}")
+        times[conc] = float(np.median(walls))
+    log(f"[train-lenet] packed LeNet-4 step vs concurrency (batch "
+        f"{LENET_BATCH} per task, median of 5; x = t1*conc/t_conc): "
+        + ", ".join(
+            f"{c}: {t:.2f} ms (x{times[1] * c / t:.2f})"
+            for c, t in times.items()))
+
+    full = pool(8)
+    for i, t in enumerate(tasks()[:8]):
+        full.attach(i, t.id, *t.init_fn(), t.hparams)
+    full_batch = packing.stack_trees([batch(i, 0) for i in range(8)])
+    return full, full_batch
+
+
+def _kernel_pool_step(params, opt_state, batch, hp, active):
+    """benchmarks/bench_kernels.py::_pool_step on the port: the two GEMMs
+    of a per-lane linear regression step (forward and hand-written
+    gradient) through the lane-masked packed GEMM."""
+    from repro_torch.kernels import ops
+    pred = ops.packed_matmul(batch["x"], params["w"], active=active)
+    err = pred - batch["y"]
+    xt = batch["x"].transpose(-1, -2)
+    grad = ops.packed_matmul(xt, err, active=active) / batch["x"].shape[-2]
+    loss = (err * err).mean(dim=(-1, -2))
+    return ({"w": params["w"] - hp.reshape(-1, 1, 1) * grad},
+            {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
+
+
+def _lane_step(params, opt_state, batch, hp):
+    """benchmarks/bench_kernels.py::_lane_step: the same step on one lane
+    (the "where" and "compact" modes vmap it)."""
+    pred = batch["x"] @ params["w"]
+    err = pred - batch["y"]
+    grad = batch["x"].T @ err / batch["x"].shape[0]
+    loss = (err * err).mean()
+    return ({"w": params["w"] - hp * grad},
+            {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
+
+
+def _occupancy_mask(J: int, occupancy: float, seed: int) -> np.ndarray:
+    """benchmarks/bench_kernels.py::_mask."""
+    k = max(1, int(round(J * occupancy)))
+    rng = np.random.Generator(np.random.Philox(key=seed))
+    m = np.zeros((J,), bool)
+    m[rng.permutation(J)[:k]] = True
+    return m
+
+
+def train_kernel(record: dict) -> tuple:
+    """The lane pool's "kernel" mode at J=16, d=o=nb=256, f32, at
+    occupancies 0.25 / 0.5 / 1.0; sets ``record["launches"]`` (B1) from
+    this run. Returns the kernel-mode step and its full-occupancy
+    arguments, for the profile."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.core.lanepool import LanePool
+    J, d, o, nb = KERNEL_POOL
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    params, opt = {"w": mk(J, d, o)}, {"m": torch.zeros(J, device="cuda")}
+    hp = torch.full((J,), 1e-2, device="cuda")
+    batch = {"x": mk(J, nb, d), "y": mk(J, nb, o)}
+    pool = LanePool(J, _kernel_pool_step,
+                    template_params=packing.lane_slice(params, 0),
+                    template_opt=packing.lane_slice(opt, 0),
+                    template_hparams=torch.tensor(0.0, device="cuda"),
+                    exec_mode="kernel")
+    dense = packing.masked_pool_step(_kernel_pool_step, mode="kernel")
+    where = packing.masked_pool_step(_lane_step, mode="where")
+    ones = np.ones((J,), bool)
+    masks = {occ: _occupancy_mask(J, occ, J * 100 + int(occ * 100))
+             for occ in (0.25, 0.5, 1.0)}
+
+    reset_launches()
+    kernel_steps = 0
+    for occ, mask in masks.items():
+        for lane in pool.active_lanes():
+            pool.detach(lane)
+        for lane in np.flatnonzero(mask):
+            pool.attach(int(lane), int(lane), packing.lane_slice(params, lane),
+                        packing.lane_slice(opt, lane), hp[lane])
+        before = tuple(packing.tree_copy(t) for t in
+                       (pool.params, pool.opt_state, pool.hparams))
+        pool.step(batch)
+        kd, _, _ = dense(*before[:2], batch, before[2], ones)
+        kernel_steps += 2
+        wp, _, _ = where(*before[:2], batch, before[2], mask)
+        act, inact = np.flatnonzero(mask), np.flatnonzero(~mask)
+        got = pool.params["w"]
+        if not torch.equal(got[act], kd["w"][act]):
+            raise AssertionError(f"kernel mode occ {occ}: active lanes differ "
+                                 f"from the all-ones step")
+        if not torch.equal(got[inact], before[0]["w"][inact]):
+            raise AssertionError(f"kernel mode occ {occ}: inactive lanes "
+                                 f"changed")
+        err = (got[act] - wp["w"][act]).abs().max().item()
+        if not torch.allclose(got[act], wp["w"][act], **MODE_TOL):
+            raise AssertionError(f"kernel vs where at occ {occ}: {err}")
+        log(f"[train-kernel] occupancy {occ} ({act.size}/{J} lanes): active "
+            f"lanes bit-equal to the all-ones step, inactive lanes "
+            f"untouched, vs where max diff {err:.3g} (rtol=atol="
+            f"{MODE_TOL['rtol']})")
+    launches = read_launches()
+    record["launches"] = launches["packed_gemm"]
+    log(f"[train-kernel] launches in this run: {launches}; kernel-mode pool "
+        f"steps {kernel_steps}, n_traces {pool.n_traces}")
+    if launches["packed_gemm"] != 2 * kernel_steps:
+        raise AssertionError(f"packed_gemm launched {launches['packed_gemm']}"
+                             f" times for {kernel_steps} kernel-mode steps")
+
+    compact = packing.masked_pool_step(_lane_step, mode="compact")
+    for occ, mask in masks.items():
+        row = {}
+        for name, fn in (("where", where), ("compact", compact),
+                         ("kernel", dense)):
+            row[name] = cuda_time_ms(
+                lambda: fn(params, opt, batch, hp, mask), iters=10)
+        log(f"[train-kernel] pool step at occupancy {occ}: where "
+            f"{row['where']:.4f} ms, compact {row['compact']:.4f} ms, kernel "
+            f"{row['kernel']:.4f} ms")
+    return dense, params, opt, batch, hp, ones
+
+
+def profile_training(lenet_pool, lenet_batch, kernel_args) -> None:
+    """Where the time goes in one full 8-lane LeNet-4 pool step ("where")
+    and one full kernel-mode step (``profile_calls``)."""
+    fn, params, opt, batch, hp, mask = kernel_args
+    profile_calls((
+        ("LeNet-4 pool step, 8 lanes, where",
+         lambda: lenet_pool.step(lenet_batch)),
+        ("kernel-mode step, J=16, all lanes",
+         lambda: fn(params, opt, batch, hp, mask))))
 
 
 def _tree_to(tree, device):
@@ -413,12 +1027,17 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     card = setup()
-    record = check_flash_attention()
+    records = [check_flash_attention(), check_packed_gemm(), *check_rmsnorm()]
     check_small_reference()
-    profile_serving(*serve_full(record))
-    log(f"[done] {time.perf_counter() - t0:.1f} s")
+    profile_serving(*serve_full(records[0]))
+    t1 = time.perf_counter()
+    lenet_pool, lenet_batch = train_lenet()
+    kernel_args = train_kernel(records[1])
+    profile_training(lenet_pool, lenet_batch, kernel_args)
+    log(f"[done] {time.perf_counter() - t0:.1f} s, training phases "
+        f"{time.perf_counter() - t1:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,15 +3,17 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. ``nvcc`` compiles it
 for sm_90a into ``build/kernels/<name>-<hash>.so`` at the repository root
 (a directory ``.gitignore`` lists), and the library is loaded with ctypes.
-The hash covers the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. Nothing is built or loaded when this
-module is imported.
+The hash covers the source, every ``csrc/*.cuh`` header it includes
+(``#include "..."``, followed through headers), and the flags, so an edited
+source or header rebuilds each library that uses it and a stale library is
+never loaded. Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -19,11 +21,12 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention",)
+SOURCES = ("flash_attention", "packed_gemm", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -35,8 +38,21 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit (set CUDA_HOME)")
 
 
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """``path``'s bytes followed by those of each header it includes from
+    ``csrc``, depth first, each header once."""
+    data = path.read_bytes()
+    parts = [data]
+    for inc in _INCLUDE.findall(data):
+        dep = CSRC / inc.decode()
+        if dep.exists() and dep not in seen:
+            seen.add(dep)
+            parts.append(_source_bytes(dep, seen))
+    return b"".join(parts)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

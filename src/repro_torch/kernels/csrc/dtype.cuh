@@ -1,0 +1,23 @@
+// Element conversions shared by the kernels: every kernel loads f32 or bf16,
+// computes in f32 and rounds once on the store.
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace repro {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as .astype(bf16)
+}
+
+}  // namespace repro

@@ -32,29 +32,20 @@
 // t%16 + 16*j, so a row's 16 owners sit in one half-warp and its max/sum
 // reduce with shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
+
 namespace {
+
+using repro::from_f32;
+using repro::to_f32;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr int LDP = BK + 1;  // padded row stride of the P tile
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as .astype(bf16)
-}
 
 struct Params {
   const void* q;

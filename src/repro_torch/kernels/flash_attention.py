@@ -21,19 +21,12 @@ import math
 
 import torch
 
+from repro_torch.kernels.ref import mask_lanes
+
 NEG_INF = -1e30
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-
-
-def mask_lanes(active, out):
-    """Where-zero the lanes of ``out``'s leading axis where ``active == 0``:
-    inactive lanes become exact zeros, active lanes pass through unchanged."""
-    mask = torch.as_tensor(active, device=out.device).reshape(-1) != 0
-    mask = mask.reshape((-1,) + (1,) * (out.dim() - 1))
-    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
-                                              device=out.device))
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,

@@ -5,12 +5,31 @@ plain PyTorch version, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 recomputes through ``models.attention.sdpa_chunked``, as the reference's
 custom_vjp does (there is no backward kernel in either package).
+
+Lane masking: every packed entry point here accepts a per-lane ``active``
+predicate, with ``active=None`` as the fast path that hands no predicate to
+the kernel. On a CUDA tensor the predicate goes into the kernel (inactive
+lanes skip their work and write zeros); on a CPU tensor the plain version
+runs and ``ref.mask_lanes`` where-zeroes inactive lanes afterwards, as the
+reference's XLA path does. ``packed_matmul`` and ``packed_norm`` are the
+building blocks of the pool's "kernel" execution mode
+(``core.packing.masked_pool_step``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fused_rmsnorm as rn
+from repro_torch.kernels import packed_gemm as pg
+from repro_torch.kernels import ref
+
+
+def _lane_predicate(active, like):
+    """``active`` as an int32 (J,) tensor on ``like``'s device, or None."""
+    if active is None:
+        return None
+    return torch.as_tensor(active, device=like.device).to(torch.int32)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -29,7 +48,7 @@ class _FlashAttention(torch.autograd.Function):
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = sdpa_chunked(*qkv, causal=ctx.causal, window=ctx.window)
             if active is not None:
-                out = fa.mask_lanes(active, out)
+                out = ref.mask_lanes(active, out)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
         return dq, dk, dv, None, None, None
 
@@ -40,6 +59,18 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,
     (B,), optional) treats the batch dim as the lane axis; inactive lanes'
     outputs are exact zeros and active lanes are bit-identical to the
     unmasked call. With ``active=None`` no predicate reaches the kernel."""
-    if active is not None:
-        active = torch.as_tensor(active, device=q.device).to(torch.int32)
-    return _FlashAttention.apply(q, k, v, active, causal, window)
+    return _FlashAttention.apply(q, k, v, _lane_predicate(active, q), causal,
+                                 window)
+
+
+def packed_matmul(x, w, *, active=None):
+    """x (J,M,K) @ w (J,K,N) per job. ``active`` (bool/int (J,), optional)
+    makes inactive lanes exact zeros: inside the kernel on CUDA, by
+    where-zero after the plain version on the CPU."""
+    return pg.packed_gemm(x, w, active=_lane_predicate(active, x))
+
+
+def packed_norm(x, w, *, active=None, eps: float = 1e-5):
+    """Lane-batched RMSNorm: x (J,rows,d), per-lane weights w (J,d). Same
+    ``active`` contract as packed_matmul (inactive lanes -> zeros)."""
+    return rn.packed_rmsnorm(x, w, active=_lane_predicate(active, x), eps=eps)

@@ -1,7 +1,9 @@
 """Plain-PyTorch oracles for the kernels (the ground truth in tests).
 
-Port of ``repro.kernels.ref``; ``ssd_ref`` and ``packed_gemm_ref`` arrive
-with their kernels.
+Port of ``repro.kernels.ref``; ``ssd_ref`` arrives with its kernel.
+``mask_lanes`` is the where-zero lane mask of the reference's XLA paths
+(``repro.kernels.ops._mask_lanes``), shared by every plain version that
+takes ``active``.
 """
 from __future__ import annotations
 
@@ -26,3 +28,18 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def packed_gemm_ref(x, w):
+    """x (J, M, K); w (J, K, N) -> (J, M, N): per-job matmul in f32, output
+    in x.dtype."""
+    return torch.einsum("jmk,jkn->jmn", x.float(), w.float()).to(x.dtype)
+
+
+def mask_lanes(active, out):
+    """Where-zero the lanes of ``out``'s leading axis where ``active == 0``:
+    inactive lanes become exact zeros, active lanes pass through unchanged."""
+    mask = torch.as_tensor(active, device=out.device).reshape(-1) != 0
+    mask = mask.reshape((-1,) + (1,) * (out.dim() - 1))
+    return torch.where(mask, out, torch.zeros((), dtype=out.dtype,
+                                              device=out.device))

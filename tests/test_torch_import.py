@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads no JAX and nothing of ``repro``,
-and no file of it (nor ``chip_smoke.py``) imports them or calls a library
-attention kernel."""
+no file of it (nor ``chip_smoke.py``) imports them or calls a library
+attention kernel, and a kernel's CUDA path computes nothing in PyTorch."""
 import ast
 import json
 import os
@@ -37,7 +37,8 @@ def test_import_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 20          # configs, kernels, models, core, launch
+    assert out["n"] >= 35   # configs, kernels, models, core, launch, optim,
+                            # data, checkpoint
     assert out["bad"] == []
 
 
@@ -62,3 +63,30 @@ def test_port_calls_no_library_attention_or_compiler(path):
     for word in ("scaled_dot_product_attention", "torch.compile", "cudnn",
                  "flash_attn"):
         assert word not in text, (path, word)
+
+
+KERNEL_MODULES = ["kernels/flash_attention.py", "kernels/packed_gemm.py",
+                  "kernels/fused_rmsnorm.py"]
+TORCH_MATH = ("matmul", "bmm", "mm", "baddbmm", "einsum", "softmax", "rsqrt",
+              "exp", "rms_norm")
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES)
+def test_kernel_path_computes_nothing_in_pytorch(path):
+    """In a kernel module, the CUDA wrapper and its helpers (``*_cuda``,
+    ``_check``, ``_bind``, ``_launch``) never reach the plain version, the
+    oracle or a PyTorch math call: on a CUDA tensor the function is the
+    kernel's alone."""
+    tree = ast.parse((PORT / path).read_text())
+    fns = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+           and (n.name.endswith("_cuda")
+                or n.name in ("_check", "_bind", "_launch"))]
+    assert any(f.name.endswith("_cuda") for f in fns), path
+    for fn in fns:
+        for node in ast.walk(fn):
+            assert not (isinstance(node, ast.BinOp)
+                        and isinstance(node.op, ast.MatMult)), fn.name
+            name = (node.attr if isinstance(node, ast.Attribute)
+                    else node.id if isinstance(node, ast.Name) else "")
+            assert name not in TORCH_MATH, (fn.name, name)
+            assert not name.endswith(("_plain", "_ref")), (fn.name, name)
