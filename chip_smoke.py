@@ -268,6 +268,7 @@ def check_flash_attention() -> dict:
     name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window = cases[0]
     q, k, v = _qkv(gen, B, Sq, Sk, Hq, Hkv, D, dt)
     ms = cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     plain_ms = cuda_time_ms(
         lambda: fa.flash_attention_plain(q, k, v, causal=True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -276,14 +277,15 @@ def check_flash_attention() -> dict:
     bound_ms, bound_by = attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal,
                                             window, dt)
     log(f"[kernel] flash_attention {tuple(q.shape)} bf16 causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+        f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:159",
             "launches": None, "max_abs_err": errs["prefill"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def _agree(out, ref) -> tuple:
@@ -371,19 +373,19 @@ def check_packed_gemm() -> dict:
         b_ms, b_by = bound_ms(2 * J * M * K * N,
                               (J * M * K + J * K * N + J * M * N)
                               * dt.itemsize, PEAK_FLOPS[str(dt)])
-        timed[label] = (ms, plain_ms, library_ms, b_ms, b_by)
+        timed[label] = (ms, dev_ms, plain_ms, library_ms, b_ms, b_by)
         log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt}: kernel "
             f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
             f"torch.bmm "
             f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    ms, plain_ms, library_ms, b_ms, b_by = timed["pool step"]
+    ms, dev_ms, plain_ms, library_ms, b_ms, b_by = timed["pool step"]
     return {"name": "packed_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/packed_gemm.cu",
             "replaces": "src/repro/kernels/packed_gemm.py:69",
             "launches": None,
             "max_abs_err": errs[POOL_GEMM + ("torch.float32",)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms}
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
 
 
 def _norm_bound(x, w) -> tuple:
@@ -468,8 +470,8 @@ def check_rmsnorm() -> list:
                 "launches": launches["packed_rmsnorm"],
                 "max_abs_err": errs[("packed",) + POOL_NORM
                                     + ("torch.float32",)],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None})
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     x, w = mk(*ROW_NORM, dt=bf16), (1 + 0.1 * mk(ROW_NORM[-1], dt=f32)).to(
         bf16)
     ms = cuda_time_ms(lambda: rn.fused_rmsnorm_cuda(x, w))
@@ -488,8 +490,8 @@ def check_rmsnorm() -> list:
         "replaces": "src/repro/kernels/fused_rmsnorm.py:33",
         "launches": launches["fused_rmsnorm"],
         "max_abs_err": errs[("fused",) + ROW_NORM + ("torch.bfloat16",)],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms})
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": library_ms})
     return records
 
 
@@ -881,10 +883,11 @@ def train_lenet() -> tuple:
     return full, full_batch
 
 
-def _kernel_pool_step(params, opt_state, batch, hp, active):
+def kernel_pool_step(params, opt_state, batch, hp, active):
     """benchmarks/bench_kernels.py::_pool_step on the port: the two GEMMs
     of a per-lane linear regression step (forward and hand-written
-    gradient) through the lane-masked packed GEMM."""
+    gradient) through the lane-masked packed GEMM. The CPU tests hold this
+    same function against the other modes."""
     from repro_torch.kernels import ops
     pred = ops.packed_matmul(batch["x"], params["w"], active=active)
     err = pred - batch["y"]
@@ -895,7 +898,7 @@ def _kernel_pool_step(params, opt_state, batch, hp, active):
             {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
 
 
-def _lane_step(params, opt_state, batch, hp):
+def lane_step(params, opt_state, batch, hp):
     """benchmarks/bench_kernels.py::_lane_step: the same step on one lane
     (the "where" and "compact" modes vmap it)."""
     pred = batch["x"] @ params["w"]
@@ -906,7 +909,7 @@ def _lane_step(params, opt_state, batch, hp):
             {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
 
 
-def _occupancy_mask(J: int, occupancy: float, seed: int) -> np.ndarray:
+def occupancy_mask(J: int, occupancy: float, seed: int) -> np.ndarray:
     """benchmarks/bench_kernels.py::_mask."""
     k = max(1, int(round(J * occupancy)))
     rng = np.random.Generator(np.random.Philox(key=seed))
@@ -918,8 +921,9 @@ def _occupancy_mask(J: int, occupancy: float, seed: int) -> np.ndarray:
 def train_kernel(record: dict) -> tuple:
     """The lane pool's "kernel" mode at J=16, d=o=nb=256, f32, at
     occupancies 0.25 / 0.5 / 1.0; sets ``record["launches"]`` (B1) from
-    this run. Returns the kernel-mode step and its full-occupancy
-    arguments, for the profile."""
+    the pool's own steps, counted before any step that checks them runs.
+    Returns the kernel-mode step and its full-occupancy arguments, for the
+    profile."""
     import torch
     from repro_torch.core import packing
     from repro_torch.core.lanepool import LanePool
@@ -929,19 +933,18 @@ def train_kernel(record: dict) -> tuple:
     params, opt = {"w": mk(J, d, o)}, {"m": torch.zeros(J, device="cuda")}
     hp = torch.full((J,), 1e-2, device="cuda")
     batch = {"x": mk(J, nb, d), "y": mk(J, nb, o)}
-    pool = LanePool(J, _kernel_pool_step,
+    pool = LanePool(J, kernel_pool_step,
                     template_params=packing.lane_slice(params, 0),
                     template_opt=packing.lane_slice(opt, 0),
                     template_hparams=torch.tensor(0.0, device="cuda"),
                     exec_mode="kernel")
-    dense = packing.masked_pool_step(_kernel_pool_step, mode="kernel")
-    where = packing.masked_pool_step(_lane_step, mode="where")
-    ones = np.ones((J,), bool)
-    masks = {occ: _occupancy_mask(J, occ, J * 100 + int(occ * 100))
+    masks = {occ: occupancy_mask(J, occ, J * 100 + int(occ * 100))
              for occ in (0.25, 0.5, 1.0)}
 
+    # the main path: one pool step per occupancy, nothing else launched
+    # between the reset and the read
     reset_launches()
-    kernel_steps = 0
+    runs = []
     for occ, mask in masks.items():
         for lane in pool.active_lanes():
             pool.detach(lane)
@@ -951,11 +954,23 @@ def train_kernel(record: dict) -> tuple:
         before = tuple(packing.tree_copy(t) for t in
                        (pool.params, pool.opt_state, pool.hparams))
         pool.step(batch)
+        runs.append((occ, mask, before, packing.tree_copy(pool.params)))
+    launches = read_launches()
+    record["launches"] = launches["packed_gemm"]
+    log(f"[train-kernel] launches in the pool's run: {launches}; kernel-mode "
+        f"pool steps {len(runs)}, n_traces {pool.n_traces}")
+    if launches["packed_gemm"] != 2 * len(runs):
+        raise AssertionError(f"packed_gemm launched {launches['packed_gemm']}"
+                             f" times for {len(runs)} kernel-mode pool steps")
+
+    dense = packing.masked_pool_step(kernel_pool_step, mode="kernel")
+    where = packing.masked_pool_step(lane_step, mode="where")
+    ones = np.ones((J,), bool)
+    for occ, mask, before, after in runs:
         kd, _, _ = dense(*before[:2], batch, before[2], ones)
-        kernel_steps += 2
         wp, _, _ = where(*before[:2], batch, before[2], mask)
         act, inact = np.flatnonzero(mask), np.flatnonzero(~mask)
-        got = pool.params["w"]
+        got = after["w"]
         if not torch.equal(got[act], kd["w"][act]):
             raise AssertionError(f"kernel mode occ {occ}: active lanes differ "
                                  f"from the all-ones step")
@@ -969,15 +984,8 @@ def train_kernel(record: dict) -> tuple:
             f"lanes bit-equal to the all-ones step, inactive lanes "
             f"untouched, vs where max diff {err:.3g} (rtol=atol="
             f"{MODE_TOL['rtol']})")
-    launches = read_launches()
-    record["launches"] = launches["packed_gemm"]
-    log(f"[train-kernel] launches in this run: {launches}; kernel-mode pool "
-        f"steps {kernel_steps}, n_traces {pool.n_traces}")
-    if launches["packed_gemm"] != 2 * kernel_steps:
-        raise AssertionError(f"packed_gemm launched {launches['packed_gemm']}"
-                             f" times for {kernel_steps} kernel-mode steps")
 
-    compact = packing.masked_pool_step(_lane_step, mode="compact")
+    compact = packing.masked_pool_step(lane_step, mode="compact")
     for occ, mask in masks.items():
         row = {}
         for name, fn in (("where", where), ("compact", compact),

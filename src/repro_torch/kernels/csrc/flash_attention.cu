@@ -35,6 +35,7 @@
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -214,8 +215,7 @@ template <typename T, int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int LD = D + 1;
   const int smem = (BQ * LD + 2 * BK * LD + BQ * LDP) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = repro::allow_dynamic_smem<fa_fwd_kernel<T, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
   fa_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);

@@ -35,6 +35,7 @@
 #include <cstdint>
 
 #include "dtype.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -168,16 +169,12 @@ cudaError_t launch(const T* x, const T* w, T* o, const int* active, int J,
   const dim3 grid((rows + warps - 1) / warps, packed ? J : 1);
   cudaError_t err;
   if (packed) {
-    err = cudaFuncSetAttribute(packed_rmsnorm_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = repro::allow_dynamic_smem<packed_rmsnorm_kernel<T>>(smem);
     if (err != cudaSuccess) return err;
     packed_rmsnorm_kernel<T><<<grid, warps * 32, smem, stream>>>(
         x, w, o, active, rows, d, eps, staged);
   } else {
-    err = cudaFuncSetAttribute(fused_rmsnorm_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = repro::allow_dynamic_smem<fused_rmsnorm_kernel<T>>(smem);
     if (err != cudaSuccess) return err;
     fused_rmsnorm_kernel<T><<<grid, warps * 32, smem, stream>>>(
         x, w, o, rows, d, eps, staged);

@@ -52,13 +52,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out if active is None else mask_lanes(active, out)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.repro_flash_attention_fwd
+def _bind():
+    from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = ([p] * 5 + [i] * 6 + [ll] * 12
-                   + [i, i, ctypes.c_float, i, p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("flash_attention", "repro_flash_attention_fwd",
+                        [p] * 5 + [i] * 6 + [ll] * 12
+                        + [i, i, ctypes.c_float, i, p])
 
 
 def _check(q, k, v, window: int):
@@ -93,8 +92,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     """Launch the Hopper kernel on CUDA tensors (raises on anything else).
     ``flash_attention_cuda.launches`` counts the launches."""
     _check(q, k, v, window)
-    from repro_torch.kernels import _build
-    fn = _bind(_build.load("flash_attention"))
+    fn = _bind()
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     act = None

@@ -41,16 +41,14 @@ def packed_rmsnorm_plain(x, w, *, active=None, eps: float = 1e-5):
     return out if active is None else mask_lanes(active, out)
 
 
-def _bind(lib: ctypes.CDLL, packed: bool):
+def _bind(packed: bool):
+    from repro_torch.kernels import _build
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if packed:
-        fn = lib.repro_packed_rmsnorm
-        fn.argtypes = [p] * 4 + [i] * 3 + [f, i, p]
-    else:
-        fn = lib.repro_fused_rmsnorm
-        fn.argtypes = [p] * 3 + [i] * 2 + [f, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+        return _build.entry("rmsnorm", "repro_packed_rmsnorm",
+                            [p] * 4 + [i] * 3 + [f, i, p])
+    return _build.entry("rmsnorm", "repro_fused_rmsnorm",
+                        [p] * 3 + [i] * 2 + [f, i, p])
 
 
 def _check(name, x, w, w_shape):
@@ -89,8 +87,7 @@ def fused_rmsnorm_cuda(x, w, *, eps: float = 1e-5):
         raise ValueError("fused_rmsnorm_cuda: x must have a last dim")
     d = x.shape[-1]
     _check("fused_rmsnorm_cuda", x, w, (d,))
-    from repro_torch.kernels import _build
-    fn = _bind(_build.load("rmsnorm"), packed=False)
+    fn = _bind(packed=False)
     out = torch.empty_like(x)
     _launch(fn, x, (x.data_ptr(), w.data_ptr(), out.data_ptr(),
                     x.numel() // d, d, eps, _DTYPE_CODE[x.dtype]))
@@ -112,8 +109,7 @@ def packed_rmsnorm_cuda(x, w, *, active=None, eps: float = 1e-5):
     _check("packed_rmsnorm_cuda", x, w, (J, d))
     if J > _MAX_GRID_Y:
         raise ValueError(f"packed_rmsnorm_cuda: {J} lanes exceed the grid")
-    from repro_torch.kernels import _build
-    fn = _bind(_build.load("rmsnorm"), packed=True)
+    fn = _bind(packed=True)
     act = None
     if active is not None:
         act = torch.as_tensor(active, device=x.device).to(torch.int32)

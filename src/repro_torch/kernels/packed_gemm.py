@@ -36,12 +36,11 @@ def packed_gemm_plain(x, w, *, active=None):
     return out if active is None else mask_lanes(active, out)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.repro_packed_gemm
+def _bind():
+    from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn.argtypes = [p] * 4 + [i] * 4 + [ll] * 6 + [i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("packed_gemm", "repro_packed_gemm",
+                        [p] * 4 + [i] * 4 + [ll] * 6 + [i, p])
 
 
 def _check(x, w):
@@ -76,8 +75,7 @@ def packed_gemm_cuda(x, w, *, active=None):
     """Launch the Hopper kernel on CUDA tensors (raises on anything else).
     ``packed_gemm_cuda.launches`` counts the launches."""
     _check(x, w)
-    from repro_torch.kernels import _build
-    fn = _bind(_build.load("packed_gemm"))
+    fn = _bind()
     J, M, K = x.shape
     N = w.shape[2]
     act = None

@@ -20,6 +20,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.model import resolve_device
+
 
 def _conv(x, w, b):
     """x (B, C, H, W); w HWIO (5, 5, C, O) -> (B, O, H, W)."""
@@ -35,7 +37,14 @@ def _pool(x):
 
 
 def init(generator: torch.Generator, device=None) -> Dict[str, torch.Tensor]:
-    device = device if device is not None else generator.device
+    """Random params drawn from ``generator`` on ``device``: ``cuda`` unless
+    another device is given, raising when no card is present and the caller
+    asked for none. ``generator`` must live on that device
+    (``torch.Generator(device=...).manual_seed(s)``)."""
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, params on "
+                         f"{device}")
 
     def normal(*shape):
         return torch.randn(*shape, generator=generator, device=device)

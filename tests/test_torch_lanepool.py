@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import kernel_pool_step, lane_step, occupancy_mask
 from repro import optim as joptim
 from repro.core import lanepool as jlp
 from repro_torch import optim
@@ -26,7 +27,6 @@ from repro_torch.core.lanepool import (LanePool, LaneTask, PoolSnapshot,
                                        PoolStepError, RefillExecutor,
                                        rehydrate, run_waves)
 from repro_torch.data.mnist import synthetic_mnist
-from repro_torch.kernels import ops
 from repro_torch.models import lenet
 from tests.prop import given_cases
 
@@ -301,34 +301,12 @@ def test_compact_mode_traces_once_per_occupancy_bucket():
     assert pool.n_traces == 3
 
 
-def _pool_step(params, opt_state, batch, hp, active):
-    """bench_kernels.py::_pool_step on the port: the pool-level,
-    mask-aware twin of ``_lane_step`` for "kernel" mode."""
-    pred = ops.packed_matmul(batch["x"], params["w"], active=active)
-    err = pred - batch["y"]
-    xt = batch["x"].transpose(-1, -2)
-    grad = ops.packed_matmul(xt, err, active=active) / batch["x"].shape[-2]
-    loss = torch.mean(err * err, dim=(-1, -2))
-    return ({"w": params["w"] - hp.reshape(-1, 1, 1) * grad},
-            {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
-
-
-def _lane_step(params, opt_state, batch, hp):
-    """bench_kernels.py::_lane_step: the same step, one lane."""
-    pred = batch["x"] @ params["w"]
-    err = pred - batch["y"]
-    grad = batch["x"].T @ err / batch["x"].shape[0]
-    loss = torch.mean(err * err)
-    return ({"w": params["w"] - hp * grad},
-            {"m": opt_state["m"] * 0.9 + loss * 0.1}, {"loss": loss})
-
-
 def test_kernel_mode_pool_freezes_inactive_lanes():
     J, nb, d = 3, 8, 16
     rng = np.random.default_rng(2)
     tmpl = {"w": torch.from_numpy(
         (rng.standard_normal((d, d)) * 0.1).astype(np.float32))}
-    pool = LanePool(J, _pool_step, template_params=tmpl,
+    pool = LanePool(J, kernel_pool_step, template_params=tmpl,
                     template_opt={"m": torch.tensor(0.0)},
                     template_hparams=torch.tensor(0.0), exec_mode="kernel")
     lane_p = {"w": torch.from_numpy(
@@ -341,7 +319,7 @@ def test_kernel_mode_pool_freezes_inactive_lanes():
         np.float32)), "y": torch.zeros(J, nb, d)}
     pool.step(batch)
     assert torch.equal(pool.params["w"][1], before["w"][1])
-    dense_step = packing.packed_kernel_step(_pool_step)
+    dense_step = packing.packed_kernel_step(kernel_pool_step)
     dense_p, _, _ = dense_step(before, {"m": torch.zeros(J)}, batch,
                                torch.full((J,), 1e-2), torch.ones(J))
     for lane in (0, 2):
@@ -357,15 +335,6 @@ def _mode_inputs(J, d, o, nb, seed):
             {"x": mk(J, nb, d), "y": mk(J, nb, o)})
 
 
-def _mask(J, occupancy, seed=0):
-    """bench_kernels.py::_mask."""
-    k = max(1, int(round(J * occupancy)))
-    rng = np.random.Generator(np.random.Philox(key=seed))
-    m = np.zeros((J,), bool)
-    m[rng.permutation(J)[:k]] = True
-    return m
-
-
 @pytest.mark.parametrize("occ", [0.25, 0.5, 0.75, 1.0])
 def test_three_modes_agree(occ):
     """bench_kernels.py::check_masked_modes on the port: where == compact
@@ -373,10 +342,10 @@ def test_three_modes_agree(occ):
     where allclose (another program); inactive state untouched."""
     J = 4
     params, opt, hp, batch = _mode_inputs(J, 16, 8, 8, seed=0)
-    where = packing.masked_pool_step(_lane_step, mode="where")
-    compact = packing.masked_pool_step(_lane_step, mode="compact")
-    kernel = packing.masked_pool_step(_pool_step, mode="kernel")
-    mask = _mask(J, occ, seed=int(occ * 100))
+    where = packing.masked_pool_step(lane_step, mode="where")
+    compact = packing.masked_pool_step(lane_step, mode="compact")
+    kernel = packing.masked_pool_step(kernel_pool_step, mode="kernel")
+    mask = occupancy_mask(J, occ, seed=int(occ * 100))
     act, inact = np.flatnonzero(mask), np.flatnonzero(~mask)
     wp, _, wm = where(params, opt, batch, hp, mask)
     cp, _, cm = compact(params, opt, batch, hp, mask)
@@ -411,7 +380,7 @@ def test_exec_modes_agree_random_lifecycle(rng):
 # ---------------------------------------------------------------------------
 
 def _lenet_init(seed):
-    return lenet.init(torch.Generator().manual_seed(seed))
+    return lenet.init(torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _lenet_batch(seed, step):

@@ -84,11 +84,40 @@ def _close(got, want, tol):
 
 def test_init_matches_reference_tree():
     ref = _jparams(0)
-    got = lenet.init(torch.Generator().manual_seed(0))
+    got = lenet.init(torch.Generator().manual_seed(0), device="cpu")
     assert set(got) == set(ref)
     for k in ref:
         assert tuple(got[k].shape) == ref[k].shape
         assert got[k].dtype == torch.float32 and ref[k].dtype == np.float32
+        assert got[k].device.type == "cpu"
+
+
+def _init_default_device():
+    lenet.init(torch.Generator().manual_seed(0))
+
+
+def _init_on_cuda_explicit():
+    lenet.init(torch.Generator().manual_seed(0), device="cuda")
+
+
+def _packed_jobs_default_device():
+    opt = optim.sgd()
+    packing.PackedJobs.create(lenet.init, opt.init, _step_fn(lenet.loss, opt),
+                              torch.Generator().manual_seed(0), n_lanes=2,
+                              hparams=torch.full((2,), 1e-2))
+
+
+@pytest.mark.parametrize("call", [_init_default_device,
+                                  _init_on_cuda_explicit,
+                                  _packed_jobs_default_device])
+def test_init_runs_on_the_card_unless_asked_otherwise(call):
+    """LeNet-4's params, and so a ``PackedJobs`` built from ``lenet.init``,
+    go to ``cuda`` unless the caller asks for the CPU: without a card that
+    raises rather than train quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 @pytest.mark.parametrize("batch", [1, 8, 64])

@@ -10,6 +10,9 @@ bf16 rtol = atol = 2e-2 (both sides compute in f32 and round the output to
 bf16 once, so they may land one bf16 ulp apart). Masks are exact: active
 lanes ``torch.equal`` to the unmasked call, inactive lanes exact zeros.
 """
+import ctypes
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -246,6 +249,23 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     after = {n: _build.library_path(n) for n in ("uses_b", "plain")}
     assert after["uses_b"] != before["uses_b"]
     assert after["plain"] == before["plain"]
+
+
+def test_entry_binds_each_c_function_once(monkeypatch):
+    """A wrapper asks ``_build.entry`` for its C function on every launch;
+    the function is looked up and its argument types set only the first
+    time."""
+    libs = {}
+    monkeypatch.setattr(_build, "load", lambda name: libs.setdefault(
+        name, types.SimpleNamespace(fn=types.SimpleNamespace())))
+    monkeypatch.setattr(_build, "_ENTRIES", {})
+    first = _build.entry("a", "fn", [ctypes.c_void_p, ctypes.c_int])
+    assert first.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert first.restype is ctypes.c_int
+    first.argtypes = "bound"
+    again = _build.entry("a", "fn", [ctypes.c_void_p, ctypes.c_int])
+    assert again is first and again.argtypes == "bound"
+    assert _build.entry("b", "fn", []) is not first
 
 
 def test_shipped_sources_include_the_shared_header():
