@@ -8,10 +8,10 @@
 namespace repro {
 
 // Let `Kernel` take `smem` bytes of dynamic shared memory on the current
-// device. cudaFuncSetAttribute is a driver call that a short kernel would
-// otherwise pay on every launch, so the limit is raised once per kernel and
-// device, and again only when a launch needs more; at or below the default
-// 48 KB nothing is set.
+// device. cudaFuncSetAttribute is a CUDA runtime call that a short kernel
+// would otherwise pay on every launch, so the limit is raised once per
+// kernel and device, and again only when a launch needs more; at or below
+// the default 48 KB nothing is set.
 template <auto Kernel>
 cudaError_t allow_dynamic_smem(int smem) {
   constexpr int kDefault = 48 * 1024;
