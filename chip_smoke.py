@@ -12,8 +12,11 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    flash attention (B3) at the serving path's shape and at GQA / window /
    f32 / ragged / lane-masked cases; the packed GEMM (B1) at the reference
    test shapes, strided and lane-masked; the RMSNorm pair (B2 lane-batched,
-   B5 rows), masked, and B2's lanes against B5 bit for bit; each timed
-   beside its bound and, where one exists, a PyTorch library call;
+   B5 rows), masked, and B2's lanes against B5 bit for bit; the SSD scan
+   (B4) at a reference test shape, ragged chunks, b = 4 and the serving
+   prefill's shape, in f32 and bf16, through the model's strided views and
+   lane-masked; each timed beside its bound and, where one exists, a
+   PyTorch library call;
 3. [small] a narrow f32 model served on the card (kernel path) and on the
    CPU (chunked path) from the same parameters must agree;
 4. [serve] the serving path: ``BatchServer`` serving 8 requests on
@@ -21,6 +24,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    kernel's launch count read around that run, then the same requests with
    ``adaptive_lanes``; [profile] device time by kernel and the device's idle
    share for one prefill and one 4-lane decode step (torch.profiler);
+   [serve-ssm] the same for full-width mamba2-130m, whose prefills run B4
+   (24 launches each), with its own [profile];
 5. [train-lenet] the paper's workflow: a triples plan, the profile of one
    LeNet-4 step at batch 64, 8 packed lanes with per-lane learning rates,
    a ``RefillExecutor`` over 24 tasks in "where" and "compact" mode, a
@@ -61,8 +66,13 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_MAX_ABS = 2e-2
 # full-width bf16 prefill logits (~unit scale) with the kernel vs with the
-# plain version: 24 layers of bf16 rounding on both sides
+# plain version: 24 layers of bf16 rounding on both sides (StableLM-2)
 LOGIT_ATOL_BF16 = 0.25
+# the same for mamba2-130m, whose random-weight logits are narrower: logit
+# std 0.557 and top-2 gap 0.234 at the compared prefill, where the kernel
+# and the plain SSD read 0.0654 apart (PERF.md, section 6); 0.1 keeps a
+# margin of 1.5x over that reading and stays below the top-2 gap
+SSM_LOGIT_ATOL_BF16 = 0.1
 SMALL_LOGIT_ATOL_F32 = 1e-4
 # packed GEMM and RMSNorm vs their plain versions. f32: F32_TOL (two
 # summation orders). bf16: both compute in f32 and round the output once,
@@ -78,7 +88,16 @@ LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 # step (the reference's own bound, benchmarks/bench_kernels.py:124)
 MODE_TOL = dict(rtol=2e-5, atol=2e-5)
 
+# SSD scan vs its plain version: sums of up to Q·N + Q·hd f32 products in
+# another order, cancelling to small entries beside large ones, so the bound
+# is on the output's scale: max |kernel - plain| <= 1e-5 · max(1, max |plain|)
+# (the CPU tests' bound against the reference). A bf16 y may also land one
+# bf16 ulp away: <= 2^-7 |plain| on top, elementwise
+SSD_SCALED = 1e-5
+
 N_LAYERS_FULL = 24
+# (b, S, nh, hd, N, chunk) of one mamba2-130m prefill of 1024 tokens
+SSD_SERVE = (1, 1024, 24, 64, 128, 128)
 # kernel shapes (J, M, K, N) and (J, rows, d): the lane pool's kernel-mode
 # step (J=16, d=o=nb=256, benchmarks/bench_kernels.py:164-166), one
 # StableLM-2 MLP up-projection per lane, and one StableLM-2 row norm
@@ -110,21 +129,39 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_events(fn, iters: int = 1, with_cpu: bool = False) -> list:
+    """The device (kernel) events of ``iters`` calls of ``fn`` in a
+    torch.profiler trace. A trace that holds no device event is taken
+    again, up to three traces in all: CUPTI on the card's machine now and
+    then returns an empty trace, which must not read as zero device time.
+    Raises if all three are empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if with_cpu
+                                      else [])
+    for attempt in range(1, 4):
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events
+        log(f"[profile] trace {attempt} of 3 holds no device event")
+    raise AssertionError("torch.profiler recorded no kernel on the card in "
+                         "three traces")
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """Device time of one call: the summed durations of the kernels it
     launches, from a torch.profiler trace of ``iters`` warm calls. Unlike
     ``cuda_time_ms`` it leaves out the host's launch overhead, which sets
     the event time of a short kernel behind a Python wrapper."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    us = sum(e.time_range.elapsed_us() for e in device_events(fn, iters))
     return us / 1e3 / iters
 
 
@@ -174,10 +211,12 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_rmsnorm as rn
     from repro_torch.kernels import packed_gemm as pg
+    from repro_torch.kernels import ssd_scan as sd
     return {"flash_attention_fwd": fa.flash_attention_cuda,
             "packed_gemm": pg.packed_gemm_cuda,
             "packed_rmsnorm": rn.packed_rmsnorm_cuda,
-            "fused_rmsnorm": rn.fused_rmsnorm_cuda}
+            "fused_rmsnorm": rn.fused_rmsnorm_cuda,
+            "ssd_scan": sd.ssd_scan_cuda}
 
 
 def reset_launches() -> None:
@@ -495,6 +534,153 @@ def check_rmsnorm() -> list:
     return records
 
 
+def ssd_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
+    """Least time for the SSD scan on these shapes: f32 operations (C·Bᵀ
+    and the intra-chunk product over the causal half of each chunk, j <= i;
+    the inter-chunk and state products in full) at the f32 peak, against
+    x, B, C read and y written in their dtype, dt read and the state
+    written in f32."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = b * nc * (2 * N * tri + 2 * nh * hd * tri + 4 * Q * N * nh * hd)
+    nbytes = ((2 * b * S * nh * hd + 2 * b * S * N) * itemsize
+              + 4 * (b * S * nh + nh + b * nh * hd * N))
+    return bound_ms(flops, nbytes, PEAK_FLOPS["torch.float32"])
+
+
+def _ssd_inputs(gen, b, S, nh, hd, N, dtype, model_like: bool):
+    """x, dt, A, B, C on the card. The reference's kernel test draws dt =
+    softplus(N(0,1)) and A = -exp(N(0,1)); ``model_like`` draws what
+    mamba2-130m's prefill sees: dt = softplus(N(0,1) - 3) (its dt_bias
+    starts in [1e-3, 1e-1]) and A in [-16, -1] (its A_log init)."""
+    import torch
+    import torch.nn.functional as F
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x, B, C = mk(b, S, nh, hd), mk(b, S, N), mk(b, S, N)
+    if model_like:
+        dt = F.softplus(mk(b, S, nh) - 3.0)
+        A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device="cuda"))
+    else:
+        dt = F.softplus(mk(b, S, nh))
+        A = -torch.exp(mk(nh))
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
+
+
+def _ssd_agree(out, ref) -> tuple:
+    """(kernel agrees with its plain version, max abs error of y, of the
+    state), under SSD_SCALED (and one bf16 ulp for a bf16 y)."""
+    import torch
+    ok, errs = True, []
+    for got, want in zip(out, ref):
+        err = (got.float() - want.float()).abs()
+        scale = SSD_SCALED * max(1.0, want.float().abs().max().item())
+        slack = (BF16_ULP_REL * want.float().abs()
+                 if got.dtype == torch.bfloat16 else 0.0)
+        ok = ok and bool((err <= slack + scale).all()) \
+            and bool(torch.isfinite(got).all())
+        errs.append(err.max().item())
+    return ok, errs[0], errs[1]
+
+
+def check_ssd_scan() -> dict:
+    """B4 against its plain version in f32 and bf16: at a reference test
+    shape, ragged chunks (9 and 10 steps), b = 4 and the serving prefill's
+    shape; from a non-zero start state; through the model's strided views
+    of one conv output; masked; then timed at the serving shape. Its launches are set by
+    ``serve_ssm``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sd
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    # (b, S, nh, hd, N, chunk, model-like inputs)
+    cases = [(2, 128, 4, 16, 32, 32, False), (2, 96, 3, 16, 64, 32, False),
+             (2, 9, 3, 16, 16, 32, False), (1, 30, 2, 16, 16, 10, False),
+             (4, 512, 24, 64, 128, 128, True), SSD_SERVE + (True,)]
+    for b, S, nh, hd, N, Q, model_like in cases:
+        for dt in (f32, bf16):
+            args = _ssd_inputs(gen, b, S, nh, hd, N, dt, model_like)
+            out = sd.ssd_scan_cuda(*args, chunk=Q)
+            torch.cuda.synchronize()
+            ok, ey, es = _ssd_agree(out, sd.ssd_scan_plain(*args, chunk=Q))
+            errs[(b, S, nh, hd, N, Q, str(dt))] = max(ey, es)
+            log(f"[kernel] ssd_scan ({b},{S},{nh},{hd}) N={N} chunk={Q} {dt}"
+                f"{' model-like' if model_like else ''}: max_abs_err y "
+                f"{ey:.3g}, state {es:.3g} (<= {SSD_SCALED}·scale"
+                f"{' + 2^-7|plain|' if dt == bf16 else ''})")
+            if not ok:
+                raise AssertionError(f"ssd_scan ({b},{S},{nh},{hd},{N},{Q}) "
+                                     f"{dt}: kernel disagrees with its plain "
+                                     f"version (y {ey}, state {es})")
+
+    # a non-zero start state (the kernel's ``init`` input), plain and masked
+    for b, S, nh, hd, N, Q in ((2, 96, 3, 16, 64, 32), SSD_SERVE):
+        s0 = torch.randn(b, nh, hd, N, generator=gen, device="cuda")
+        for dt in (f32, bf16):
+            args = _ssd_inputs(gen, b, S, nh, hd, N, dt, True)
+            out = sd.ssd_scan_cuda(*args, chunk=Q, init_state=s0)
+            torch.cuda.synchronize()
+            ok, ey, es = _ssd_agree(out, sd.ssd_scan_plain(
+                *args, chunk=Q, init_state=s0))
+            log(f"[kernel] ssd_scan ({b},{S},{nh},{hd}) N={N} chunk={Q} {dt} "
+                f"from a start state: max_abs_err y {ey:.3g}, state {es:.3g}")
+            if not ok:
+                raise AssertionError(f"ssd_scan with init_state ({b},{S},"
+                                     f"{nh},{hd},{N},{Q}) {dt}: kernel "
+                                     f"disagrees (y {ey}, state {es})")
+    args = _ssd_inputs(gen, 3, 128, 4, 64, 128, bf16, True)
+    s0 = torch.randn(3, 4, 64, 128, generator=gen, device="cuda")
+    dense = ops.ssd(*args, init_state=s0)
+    masked = ops.ssd(*args, init_state=s0,
+                     active=torch.tensor((0, 1, 0), device="cuda"))
+    for d, m in zip(dense, masked):
+        _check_lanes(m, d, (0, 1, 0), "ssd_scan with init_state")
+    log("[kernel] ssd_scan masked bf16 from a start state: lanes 0 and 2 "
+        "exact zeros, lane 1 bit-identical")
+
+    # the model's layout: x, B, C are views of one (b, S, d_in + 2N) tensor
+    b, S, nh, hd, N, Q = SSD_SERVE
+    x, dt, A, B, C = _ssd_inputs(gen, b, S, nh, hd, N, bf16, True)
+    xBC = torch.cat([x.reshape(b, S, nh * hd), B, C], dim=-1)
+    views = (xBC[..., :nh * hd].reshape(b, S, nh, hd), dt, A,
+             xBC[..., nh * hd:nh * hd + N], xBC[..., nh * hd + N:])
+    got, want = sd.ssd_scan_cuda(*views), sd.ssd_scan_cuda(x, dt, A, B, C)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    log(f"[kernel] ssd_scan strided views of xBC (row stride "
+        f"{views[0].stride(1)}): equal to contiguous inputs bit for bit "
+        f"{same}")
+    if not same:
+        raise AssertionError("ssd_scan: strided views differ")
+
+    # lane mask: y and the state zero on inactive lanes, exact on active
+    args = _ssd_inputs(gen, 4, 256, 8, 64, 128, bf16, True)
+    dense = ops.ssd(*args)
+    for active in ((1, 0, 1, 0), (0, 0, 0, 1), (1, 1, 1, 1)):
+        masked = ops.ssd(*args, active=torch.tensor(active, device="cuda"))
+        for d, m in zip(dense, masked):
+            _check_lanes(m, d, active, "ssd_scan")
+    log("[kernel] ssd_scan masked bf16: y and state of inactive lanes exact "
+        "zeros, active lanes bit-identical, for (1,0,1,0) (0,0,0,1) "
+        "(1,1,1,1)")
+
+    args = _ssd_inputs(gen, b, S, nh, hd, N, bf16, True)
+    ms = cuda_time_ms(lambda: sd.ssd_scan_cuda(*args))
+    dev_ms = device_ms(lambda: sd.ssd_scan_cuda(*args))
+    plain_ms = cuda_time_ms(lambda: sd.ssd_scan_plain(*args), iters=5)
+    b_ms, b_by = ssd_bound_ms(b, S, nh, hd, N, Q, 2)
+    log(f"[kernel] ssd_scan {SSD_SERVE[:4]} N={N} chunk={Q} bf16: kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, no "
+        f"library call (no single PyTorch call computes SSD), bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:73",
+            "launches": None,
+            "max_abs_err": errs[SSD_SERVE + ("torch.bfloat16",)], "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: serving
 # ---------------------------------------------------------------------------
@@ -629,13 +815,119 @@ def serve_full(record: dict):
     return model, params, max((r.prompt for r in reqs), key=len)
 
 
+def ssm_requests(vocab: int):
+    """8 requests from numpy seed 0: prompts 512-1024 tokens, the longest
+    exactly 1024 (S_pad = 8 SSD chunks of 128), max_new 12-32."""
+    reqs = make_requests(0, 8, (512, 1024), (12, 32), vocab)
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    extra = np.random.default_rng(1).integers(
+        0, vocab, 1024 - len(longest.prompt)).astype(np.int64)
+    longest.prompt = np.concatenate([longest.prompt, extra])
+    return reqs
+
+
+def serve_ssm(record: dict):
+    """The SSM serving path: ``BatchServer`` on full-width mamba2-130m;
+    sets ``record["launches"]`` (B4) from its run. Returns (model, params,
+    longest prompt) for the profile."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import BatchServer
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ParallelCtx
+    cfg = configs.get("mamba2-130m")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve-ssm] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, SSD chunk {cfg.ssm.chunk_size}, "
+        f"{n_params / 1e6:.1f} M params f32, init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    reqs = ssm_requests(cfg.vocab_size)
+    total_new = sum(r.max_new for r in reqs)
+    srv = BatchServer(model, params, batch_lanes=4, max_len=2048)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = srv.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    record["launches"] = launches["ssd_scan"]
+    st = srv.stats
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_tokens = st.lane_steps - st.prefills
+    s_pad = max(len(r.prompt) for r in reqs)
+    log(f"[serve-ssm] 8 requests, prompts {min(len(r.prompt) for r in reqs)}"
+        f"-{s_pad} tokens, max_new {min(r.max_new for r in reqs)}-"
+        f"{max(r.max_new for r in reqs)}: wall {wall:.3f} s, prefills "
+        f"{st.prefills}, global_steps {st.global_steps}, lane_steps "
+        f"{st.lane_steps}, lane_slots {st.lane_slots}, launches {launches}")
+    log(f"[serve-ssm] prefill {1e3 * st.prefill_s / st.prefills:.2f} "
+        f"ms/request (S_pad {s_pad}), decode "
+        f"{decode_tokens / st.decode_s:.1f} tokens/s over {st.global_steps} "
+        f"steps ({1e3 * st.decode_s / st.global_steps:.2f} ms/step), peak "
+        f"memory {peak_gb:.2f} GB")
+    if st.lane_steps != total_new:
+        raise AssertionError(f"lane_steps {st.lane_steps} != Σ max_new "
+                             f"{total_new}")
+    if launches["ssd_scan"] != st.prefills * N_LAYERS_FULL \
+            or launches["ssd_scan"] == 0:
+        raise AssertionError(f"ssd_scan launches {launches['ssd_scan']} != "
+                             f"prefills {st.prefills} x {N_LAYERS_FULL}")
+    for r in reqs:
+        toks = out[r.id]
+        if len(toks) != r.max_new or not all(0 <= t < cfg.padded_vocab
+                                             for t in toks):
+            raise AssertionError(f"request {r.id}: bad tokens {toks}")
+
+    # the longest prompt's prefill logits: kernel vs plain version
+    r0 = max(reqs, key=lambda r: len(r.prompt))
+    toks = torch.from_numpy(r0.prompt[None]).cuda()
+    with torch.inference_mode():
+        lk, _ = model.prefill(params, {"tokens": toks}, max_len=2048)
+        plain = Model(cfg, ParallelCtx(attn_impl="plain"), device="cuda")
+        lp, _ = plain.prefill(params, {"tokens": toks}, max_len=2048)
+    err = (lk - lp).abs().max().item()
+    top2 = lp[0].topk(2).values
+    first_equal = bool(lk.argmax() == lp.argmax()) \
+        and int(lk.argmax()) == out[r0.id][0]
+    log(f"[serve-ssm] request {r0.id} (S {toks.shape[1]}) prefill logits, "
+        f"kernel vs plain: max_abs_err {err:.4g} (atol "
+        f"{SSM_LOGIT_ATOL_BF16}), "
+        f"logit std {lp.std().item():.3f}, top-2 gap "
+        f"{(top2[0] - top2[1]).item():.4g}; first token equal to the "
+        f"plain prefill's and the served one {first_equal}")
+    if not (torch.isfinite(lk).all() and err <= SSM_LOGIT_ATOL_BF16
+            and first_equal):
+        raise AssertionError(f"mamba2 prefill: kernel vs plain err {err}, "
+                             f"first token equal {first_equal}")
+
+    # the same requests with adaptive lanes
+    reqs2 = ssm_requests(cfg.vocab_size)
+    srv2 = BatchServer(model, params, batch_lanes=4, max_len=2048,
+                       adaptive_lanes=True)
+    out2 = srv2.run(reqs2)
+    agree = sum(a == b for r in reqs for a, b in zip(out[r.id], out2[r.id]))
+    firsts = all(out[r.id][0] == out2[r.id][0] for r in reqs)
+    log(f"[serve-ssm] adaptive_lanes: resizes {srv2.stats.resizes}, "
+        f"lane_slots {srv2.stats.lane_slots} vs {st.lane_slots}; tokens "
+        f"agreeing with the fixed pool {agree}/{total_new} "
+        f"({agree / total_new:.3f}); first tokens equal {firsts}")
+    if srv2.stats.lane_steps != total_new or not firsts:
+        raise AssertionError("adaptive run: lane_steps or first tokens off")
+    return model, params, r0.prompt
+
+
 def profile_calls(calls) -> None:
     """For each (label, fn): the host-clock wall time of a warm call (median
     of 3, unprofiled), the sum of kernel durations in a torch.profiler trace
     of one call, the device's idle share (1 - kernels / wall), and the top
     kernels by device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for label, fn in calls:
         walls = []
         for _ in range(4):
@@ -644,20 +936,12 @@ def profile_calls(calls) -> None:
             torch.cuda.synchronize()
             walls.append(1e3 * (time.perf_counter() - t0))
         wall_ms = float(np.median(walls[1:]))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
         by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                                   n + 1)
+        for e in device_events(fn, with_cpu=True):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
         busy_ms = sum(ms for ms, _ in by_name.values())
         launches = sum(n for _, n in by_name.values())
-        if launches == 0:
-            raise AssertionError(f"profile {label}: no kernel ran on the card")
         log(f"[profile] {label}: wall {wall_ms:.2f} ms (median of 3, "
             f"unprofiled), kernels {busy_ms:.2f} ms in {launches} "
             f"launches, device idle {1 - busy_ms / wall_ms:.3f}")
@@ -669,7 +953,7 @@ def profile_calls(calls) -> None:
 
 def profile_serving(model, params, prompt: np.ndarray) -> None:
     """Device time by kernel and the device's idle share for one prefill of
-    ``prompt`` and one 4-lane decode step (``profile_calls``)."""
+    ``prompt`` and one 4-lane decode step of ``model`` (``profile_calls``)."""
     import torch
     from repro_torch.core import packing
     from repro_torch.launch.serve import LANE_AXIS
@@ -681,10 +965,12 @@ def profile_serving(model, params, prompt: np.ndarray) -> None:
         step = {"tokens": torch.zeros((4, 1), dtype=torch.long,
                                       device="cuda"),
                 "pos": torch.full((4,), toks.shape[1], device="cuda")}
+        name = model.cfg.name
         calls = (
-            ("prefill", lambda: model.prefill(params, {"tokens": toks},
-                                              max_len=2048)),
-            ("decode", lambda: model.decode_step(params, step, pool)))
+            (f"{name} prefill", lambda: model.prefill(
+                params, {"tokens": toks}, max_len=2048)),
+            (f"{name} decode", lambda: model.decode_step(params, step,
+                                                         pool)))
         profile_calls(calls)
 
 
@@ -1035,9 +1321,11 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     card = setup()
-    records = [check_flash_attention(), check_packed_gemm(), *check_rmsnorm()]
+    records = [check_flash_attention(), check_packed_gemm(), *check_rmsnorm(),
+               check_ssd_scan()]
     check_small_reference()
     profile_serving(*serve_full(records[0]))
+    profile_serving(*serve_ssm(records[4]))
     t1 = time.perf_counter()
     lenet_pool, lenet_batch = train_lenet()
     kernel_args = train_kernel(records[1])

@@ -4,7 +4,8 @@ The device of the tensors picks the path: a CPU tensor takes the kernel's
 plain PyTorch version, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 recomputes through ``models.attention.sdpa_chunked``, as the reference's
-custom_vjp does (there is no backward kernel in either package).
+custom_vjp does (there is no backward kernel in either package). ``ssd``
+has no backward in either package.
 
 Lane masking: every packed entry point here accepts a per-lane ``active``
 predicate, with ``active=None`` as the fast path that hands no predicate to
@@ -23,6 +24,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_rmsnorm as rn
 from repro_torch.kernels import packed_gemm as pg
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as sd
 
 
 def _lane_predicate(active, like):
@@ -61,6 +63,18 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,
     unmasked call. With ``active=None`` no predicate reaches the kernel."""
     return _FlashAttention.apply(q, k, v, _lane_predicate(active, q), causal,
                                  window)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128, active=None, init_state=None):
+    """Mamba2 SSD chunked scan: (y (b,S,nh,hd), final state (b,nh,hd,N)
+    f32), from ``init_state`` (b,nh,hd,N) or a zero state. ``active``
+    (bool/int (b,), optional) treats the batch dim as the lane axis:
+    inactive lanes' y AND final state are exact zeros, active lanes
+    bit-identical to the call without it. With ``active=None`` no predicate
+    reaches the kernel."""
+    return sd.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                       active=_lane_predicate(active, x),
+                       init_state=init_state)
 
 
 def packed_matmul(x, w, *, active=None):

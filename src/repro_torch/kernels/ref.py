@@ -1,9 +1,8 @@
 """Plain-PyTorch oracles for the kernels (the ground truth in tests).
 
-Port of ``repro.kernels.ref``; ``ssd_ref`` arrives with its kernel.
-``mask_lanes`` is the where-zero lane mask of the reference's XLA paths
-(``repro.kernels.ops._mask_lanes``), shared by every plain version that
-takes ``active``.
+Port of ``repro.kernels.ref``. ``mask_lanes`` is the where-zero lane mask
+of the reference's XLA paths (``repro.kernels.ops._mask_lanes``), shared by
+every plain version that takes ``active``.
 """
 from __future__ import annotations
 
@@ -28,6 +27,12 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, B, C):
+    """Sequential SSD recurrence oracle (see models.ssm)."""
+    from repro_torch.models.ssm import ssd_reference_recurrent
+    return ssd_reference_recurrent(x, dt, A, B, C)
 
 
 def packed_gemm_ref(x, w):

@@ -2,8 +2,10 @@
 
 Port of ``repro.launch.serve``. It is TRUE continuous batching:
 
-  * the decode state is a fixed-capacity pool — per-lane KV caches stacked
-    on a lane axis — and a step decodes every lane in one call;
+  * the decode state is a fixed-capacity pool — per-lane decode caches (a
+    KV cache per layer for attention, the conv and SSM state per layer for
+    Mamba2) stacked on a lane axis — and a step decodes every lane in one
+    call;
   * a request joins MID-DECODE the moment a lane frees: its prompt is
     prefilled at batch 1 and its cache copied into the free lane, other
     lanes undisturbed;
@@ -16,7 +18,8 @@ lane axis is written out as the batch dimension of one ``decode_step``:
 tokens (C,1), pos (C,), and every cache leaf (L, C, ...) has its lanes on
 axis 1 (``LANE_AXIS``); each lane still carries its own ``len``/``pos``.
 Prompts are left-padded with token 0 to one length per ``run``, and the
-padding is attended, as in the reference.
+padding is attended (or scanned), as in the reference; for Mamba2 that
+length must be a multiple of the SSD chunk, or at most one chunk.
 """
 from __future__ import annotations
 
@@ -99,14 +102,15 @@ class BatchServer:
         if not queue:
             return results
         S_pad = max(len(r.prompt) for r in queue)
-        # enqueue-time KV guard: decode writes positions S_pad .. S_pad +
-        # max_new - 2 (the first token comes from prefill), so the cache
-        # must hold S_pad + max_new - 1 positions.
+        # enqueue-time length guard: decode runs positions S_pad .. S_pad +
+        # max_new - 2 (the first token comes from prefill), so a KV cache
+        # must hold S_pad + max_new - 1 positions. The reference applies
+        # it to every family, the SSM's fixed-size state included.
         for r in queue:
             if S_pad + r.max_new - 1 > self.max_len:
                 raise ValueError(
                     f"request {r.id}: padded prompt ({S_pad}) + max_new "
-                    f"({r.max_new}) needs {S_pad + r.max_new - 1} KV "
+                    f"({r.max_new}) needs {S_pad + r.max_new - 1} "
                     f"positions > max_len ({self.max_len}); shorten the "
                     f"prompt or raise max_len")
         C = min(self.lanes, len(queue))

@@ -1,8 +1,15 @@
-"""Public model API for the dense family (port of ``repro.models.model``).
+"""Public model API for the dense and ssm families (port of
+``repro.models.model``; the other families raise ``NotImplementedError``).
 
 Batch layouts (integer tensors):
   prefill  {"tokens": (B,S)}
   decode   {"tokens": (B,1), "pos": (B,)}
+
+The decode cache is stacked on a leading L axis with the batch (the serving
+pool's lanes) on axis 1: per layer a ring KV cache for dense, and for ssm
+the Mamba2 decode state {"conv": (L,B,w-1,ch) compute dtype, "ssm":
+(L,B,nh,hd,N) f32}. An ssm prefill needs S % min(chunk, S) == 0, as in the
+reference.
 
 ``Model`` runs on ``cuda`` unless it is given another device; it raises when
 no card is present and the caller asked for none.
@@ -14,7 +21,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.transformer import ParallelCtx
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -36,9 +43,10 @@ def resolve_device(device=None) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, pctx: Optional[ParallelCtx] = None,
                  window: Optional[int] = None, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense family is ported")
+                f"family {cfg.family!r}: only the dense and ssm families "
+                f"are ported")
         self.cfg = cfg
         self.pctx = pctx or ParallelCtx()
         self.window = cfg.sliding_window if window is None else window
@@ -63,8 +71,8 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = layers.dense_init(generator, cfg.d_model, V,
                                              self.pdt)
-        p["blocks"] = transformer.init_stack(generator, cfg, cfg.num_layers,
-                                             self.pdt)
+        p["blocks"] = transformer.init_stack(generator, cfg, cfg.family,
+                                             cfg.num_layers, self.pdt)
         return p
 
     # ------------------------------------------------------------- backbone
@@ -88,13 +96,19 @@ class Model:
 
     def _backbone(self, params, h, positions, caches=None):
         return transformer.run_stack(
-            params["blocks"], h, self.cfg, positions=positions,
-            window=self.window, causal=True, caches=caches, pctx=self.pctx)
+            params["blocks"], h, self.cfg, self.cfg.family,
+            positions=positions, window=self.window, causal=True,
+            caches=caches, pctx=self.pctx)
 
     # ------------------------------------------------------------- serving
     def make_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         """Decode cache, every leaf stacked on a leading L axis."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            one = ssm.init_decode_state(batch_size, cfg.d_model, cfg.ssm,
+                                        self.cdt, self.device)
+            return {name: leaf.expand(cfg.num_layers, *leaf.shape).clone()
+                    for name, leaf in one.items()}
         attn_len = min(max_len, self.window) if self.window else max_len
         one = attention.init_kv_cache(
             batch_size, attn_len, cfg.num_kv_heads, cfg.resolved_head_dim,

@@ -1,0 +1,266 @@
+"""Mamba2 / SSD (state-space duality) sequence mixer [arXiv:2405.21060].
+
+Port of ``repro.models.ssm``. ``ssd_chunked`` is the chunked SSD algorithm in
+plain PyTorch, f32 inside: within a chunk the recurrence runs in its dual
+(attention-like) matrix form, and the small recurrent state (B, nh, hd, N)
+is carried across chunks by a Python loop (the reference's ``lax.scan``).
+Decode runs the recurrent step directly.
+
+Which scan a full-sequence block uses is ``impl``, as for attention
+(``attention.default_impl``): ``"kernel"`` is ``kernels.ops.ssd`` (the
+Hopper kernel on a CUDA tensor, its plain version on a CPU tensor; the
+default on ``cuda``), ``"chunked"`` is ``ssd_chunked`` (the reference's own
+path; the default on ``cpu``), ``"plain"`` is the kernel's plain version
+``kernels.ssd_scan.ssd_scan_plain`` on any device. Each of them starts from
+a block's ``init_state`` when it is given (the TPU kernel always starts from
+zero; the port's kernel takes the state as an input).
+
+Conventions: x (B,S,nh,hd); dt (B,S,nh); A (nh,) negative reals;
+B/C (B,S,N) shared across heads (ngroups=1, as in mamba2-130m).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import SSMConfig
+from repro_torch.models import layers
+from repro_torch.models.attention import default_impl
+
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# core SSD scan (plain PyTorch, f32 internals)
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,nh,hd) in x.dtype, final_state (B,nh,hd,N) f32)."""
+    b, S, nh, hd = x.shape
+    N = B.shape[-1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"seq {S} % chunk {chunk} != 0")
+    nc = S // chunk
+
+    xc = x.to(_F32).reshape(b, nc, chunk, nh, hd)
+    dtc = dt.to(_F32).reshape(b, nc, chunk, nh)
+    Bc = B.to(_F32).reshape(b, nc, chunk, N)
+    Cc = C.to(_F32).reshape(b, nc, chunk, N)
+
+    # per-step log decay  la_t = dt_t * A  (A < 0)
+    dA = dtc * A.to(_F32)                                 # (b,nc,Q,nh)
+    la = torch.cumsum(dA, dim=2)                          # inclusive cumsum
+    la_total = la[:, :, -1]                               # (b,nc,nh)
+
+    xb = xc * dtc[..., None]                              # dt-weighted inputs
+
+    # ---- intra-chunk (dual / attention-like form) ----
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)          # (b,nc,Q,Q)
+    # decay[i,j,h] = exp(la_i - la_j) for i >= j else 0. A where, not a
+    # product with the mask: for i < j the exp may be inf, and inf * 0 = NaN
+    diff = la[:, :, :, None, :] - la[:, :, None, :, :]    # (b,nc,Q,Q,nh)
+    iq = torch.arange(chunk, device=x.device)
+    tri = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
+    decay = torch.where(tri, torch.exp(diff), torch.zeros((), device=x.device))
+    y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", CB, decay, xb)
+
+    # ---- chunk-boundary states ----
+    # state contribution of chunk c: sum_j exp(la_Q - la_j) * xb_j ⊗ B_j
+    decay_out = torch.exp(la_total[:, :, None, :] - la)   # (b,nc,Q,nh)
+    chunk_state = torch.einsum("bcjh,bcjhp,bcjn->bchpn", decay_out, xb, Bc)
+
+    state = (torch.zeros((b, nh, hd, N), dtype=_F32, device=x.device)
+             if init_state is None else init_state.to(_F32))
+    states_in = []                                        # state BEFORE chunk
+    for c in range(nc):
+        states_in.append(state)
+        state = state * torch.exp(la_total[:, c])[:, :, None, None] \
+            + chunk_state[:, c]
+    states_in = torch.stack(states_in, dim=1)             # (b,nc,nh,hd,N)
+
+    # ---- inter-chunk: y_i += exp(la_i) * C_i . state_in ----
+    c_decayed = Cc[:, :, :, None, :] * torch.exp(la)[..., None]  # (b,nc,Q,nh,N)
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", c_decayed, states_in)
+
+    y = (y_intra + y_inter).reshape(b, S, nh, hd)
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step. state (B,nh,hd,N); x_t (B,nh,hd); dt_t (B,nh);
+    B_t/C_t (B,N). Returns (y_t (B,nh,hd), new_state)."""
+    a = torch.exp(dt_t.to(_F32) * A.to(_F32))             # (B,nh)
+    xb = x_t.to(_F32) * dt_t.to(_F32)[..., None]          # (B,nh,hd)
+    upd = xb[..., None] * B_t.to(_F32)[:, None, None, :]
+    new_state = state * a[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_t.to(_F32))
+    return y.to(x_t.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv1d (width <= 4 unrolled shifts)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b):
+    """x (B,S,Ch); w (width,Ch); b (Ch,). Causal depthwise conv."""
+    width = w.shape[0]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    S = x.shape[1]
+    out = sum(pad[:, i:i + S] * w[i] for i in range(width))
+    return out + b
+
+
+def causal_conv1d_step(conv_state, x_t, w, b):
+    """conv_state (B,width-1,Ch) holds previous inputs; x_t (B,Ch)."""
+    full = torch.cat([conv_state, x_t[:, None]], dim=1)   # (B,width,Ch)
+    y = torch.einsum("bwc,wc->bc", full, w) + b
+    return y, full[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# full Mamba2 block
+# ---------------------------------------------------------------------------
+
+def dims(d_model: int, s: SSMConfig):
+    d_in = s.expand * d_model
+    nh = s.num_heads or d_in // s.head_dim
+    ch = d_in + 2 * s.state_dim      # conv channels: x_ssm + B + C
+    return d_in, nh, ch
+
+
+def init_mamba2(gen: torch.Generator, d_model: int, s: SSMConfig,
+                dtype) -> dict:
+    d_in, nh, ch = dims(d_model, s)
+    dev = gen.device
+    # in_proj emits [z(d_in), xBC(ch), dt(nh)]
+    d_proj = d_in + ch + nh
+    w_in = layers.dense_init(gen, d_model, d_proj, dtype)
+    conv_w = (torch.randn((s.conv_width, ch), generator=gen, device=dev,
+                          dtype=_F32) / math.sqrt(s.conv_width)).to(dtype)
+    u = torch.rand((nh,), generator=gen, device=dev, dtype=_F32)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    a = 1.0 + 15.0 * torch.rand((nh,), generator=gen, device=dev, dtype=_F32)
+    return {
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((ch,), dtype=dtype, device=dev),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),     # inv softplus, f32
+        "A_log": torch.log(a),
+        "D": torch.ones((nh,), dtype=_F32, device=dev),
+        "norm_w": torch.ones((d_in,), dtype=dtype, device=dev),
+        "w_out": layers.dense_init(gen, d_in, d_model, dtype),
+    }
+
+
+def _project(params, x, d_model, s: SSMConfig):
+    d_in, nh, ch = dims(d_model, s)
+    proj = x @ params["w_in"].to(x.dtype)
+    z = proj[..., :d_in]
+    xBC = proj[..., d_in:d_in + ch]
+    dt_raw = proj[..., d_in + ch:]
+    return z, xBC, dt_raw, (d_in, nh, ch)
+
+
+def _scan(impl: str, x, dt, A, B, C, chunk: int, init_state):
+    if impl == "chunked":
+        return ssd_chunked(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    if impl == "kernel":
+        from repro_torch.kernels import ops
+        return ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    if impl == "plain":
+        from repro_torch.kernels.ssd_scan import ssd_scan_plain
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              init_state=init_state)
+    raise ValueError(f"unknown SSD impl {impl!r}")
+
+
+def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
+           impl: Optional[str]):
+    """``mamba2_block`` that also returns the projected conv input xBC
+    (B,S,ch), whose last width-1 rows are the decode conv state."""
+    z, xBC_in, dt_raw, (d_in, nh, ch) = _project(params, x, d_model, s)
+    xBC = F.silu(causal_conv1d(xBC_in, params["conv_w"].to(x.dtype),
+                               params["conv_b"].to(x.dtype)))
+    xs = xBC[..., :d_in]
+    Bm = xBC[..., d_in:d_in + s.state_dim]
+    Cm = xBC[..., d_in + s.state_dim:]
+    b, S, _ = x.shape
+    xh = xs.reshape(b, S, nh, s.head_dim)    # a view: the kernel reads xBC
+    dt = F.softplus(dt_raw.to(_F32) + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y, state = _scan(impl or default_impl(x.device), xh, dt, A, Bm, Cm,
+                     s.chunk_size, init_state)
+    y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
+    y = y.reshape(b, S, d_in)
+    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
+    return y @ params["w_out"].to(x.dtype), state, xBC_in
+
+
+def mamba2_block(params: dict, x, d_model: int, s: SSMConfig,
+                 init_state: Optional[torch.Tensor] = None,
+                 impl: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence Mamba2. x (B,S,d). Returns (y, final_ssm_state)."""
+    y, state, _ = _block(params, x, d_model, s, init_state, impl)
+    return y, state
+
+
+def mamba2_prefill(params: dict, x, d_model: int, s: SSMConfig,
+                   impl: Optional[str] = None) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence Mamba2 that also returns the decode state
+    {'conv': last width-1 projected inputs, 'ssm': final state}, from one
+    projection (the reference projects a second time for the conv state)."""
+    y, state, xBC = _block(params, x, d_model, s, None, impl)
+    return y, {"conv": xBC[:, -(s.conv_width - 1):], "ssm": state}
+
+
+def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,
+                       s: SSMConfig) -> Tuple[torch.Tensor, dict]:
+    """One-token decode. x_t (B,d). state={'conv':(B,w-1,ch),'ssm':(B,nh,hd,N)}."""
+    z, xBC, dt_raw, (d_in, nh, ch) = _project(params, x_t, d_model, s)
+    xBC, conv_state = causal_conv1d_step(
+        state["conv"], xBC, params["conv_w"].to(x_t.dtype),
+        params["conv_b"].to(x_t.dtype))
+    xBC = F.silu(xBC)
+    xs = xBC[..., :d_in]
+    Bm = xBC[..., d_in:d_in + s.state_dim]
+    Cm = xBC[..., d_in + s.state_dim:]
+    xh = xs.reshape(-1, nh, s.head_dim)
+    dt = F.softplus(dt_raw.to(_F32) + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y, ssm_state = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm)
+    y = y + params["D"].to(x_t.dtype)[None, :, None] * xh
+    y = y.reshape(-1, d_in)
+    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
+    return y @ params["w_out"].to(x_t.dtype), {"conv": conv_state,
+                                                "ssm": ssm_state}
+
+
+def init_decode_state(batch: int, d_model: int, s: SSMConfig, dtype,
+                      device=None) -> dict:
+    d_in, nh, ch = dims(d_model, s)
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, ch), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, nh, s.head_dim, s.state_dim), dtype=_F32,
+                           device=device),
+    }
+
+
+def ssd_reference_recurrent(x, dt, A, B, C):
+    """O(S) sequential oracle for tests: literal recurrence, no chunking."""
+    b, S, nh, hd = x.shape
+    state = torch.zeros((b, nh, hd, B.shape[-1]), dtype=_F32, device=x.device)
+    ys = []
+    for t in range(S):
+        y, state = ssd_decode_step(state, x[:, t], dt[:, t], A, B[:, t],
+                                   C[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1), state

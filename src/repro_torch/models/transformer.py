@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, dense kind (port of the dense branches of
-``repro.models.transformer``).
+"""Decoder-only stacks of the dense and ssm kinds (port of those branches
+of ``repro.models.transformer``).
 
 Per-layer params and caches are stacked on a leading L axis, as in the
 reference; its ``lax.scan`` over that axis becomes a Python loop that takes
@@ -14,25 +14,37 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.packing import lane_slice, stack_trees
-from repro_torch.models import attention, layers
+from repro_torch.core.packing import lane_slice, stack_trees, tree_map
+from repro_torch.models import attention, layers, ssm
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     """How the forward pass should specialize.
 
-    attn_impl   — prefill/train attention path ("kernel"|"chunked"|"plain";
-                  None picks by device, see ``attention.default_impl``)
+    attn_impl   — the sequence mixer's prefill/train path, for attention and
+                  SSD alike (None picks by device, see
+                  ``attention.default_impl``):
+                    "kernel"  — the Hopper kernel (``ops.flash_attention``,
+                                ``ops.ssd``); the default on ``cuda``
+                    "chunked" — the reference's own path (``sdpa_chunked``,
+                                ``ssm.ssd_chunked``); the default on ``cpu``
+                    "plain"   — the kernel's plain version on any device
     score_bf16  — bf16 softmax probabilities in ``sdpa_chunked``'s PV product
     """
     attn_impl: Optional[str] = None
     score_bf16: bool = False
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               dtype) -> dict:
     hd = cfg.resolved_head_dim
     dev = gen.device
+    if kind == "ssm":
+        return {"ln": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+                "mamba": ssm.init_mamba2(gen, cfg.d_model, cfg.ssm, dtype)}
+    if kind != "dense":
+        raise ValueError(kind)
     return {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "attn": attention.init_attention(
@@ -42,8 +54,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     }
 
 
-def init_stack(gen: torch.Generator, cfg: ModelConfig, n: int, dtype) -> dict:
-    return stack_trees([init_block(gen, cfg, dtype) for _ in range(n)])
+def init_stack(gen: torch.Generator, cfg: ModelConfig, kind: str, n: int,
+               dtype) -> dict:
+    return stack_trees([init_block(gen, cfg, kind, dtype) for _ in range(n)])
 
 
 def attn_block_fwd(p: dict, x, cfg: ModelConfig, *, positions, window: int,
@@ -57,9 +70,31 @@ def attn_block_fwd(p: dict, x, cfg: ModelConfig, *, positions, window: int,
         prob_dtype=torch.bfloat16 if pctx.score_bf16 else torch.float32)
 
 
-def block_fwd(p: dict, x, cfg: ModelConfig, *, positions, window: int = 0,
-              causal: bool = True, cache=None, pctx: ParallelCtx):
-    """Dense block. Returns (x, cache)."""
+def _write(cache: dict, new: dict) -> None:
+    """Copy a layer's new decode state into its (stacked) cache views."""
+    tree_map(lambda dst, src: dst.copy_(src), cache, new)
+
+
+def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
+              window: int = 0, causal: bool = True, cache=None,
+              pctx: ParallelCtx):
+    """One block of ``kind`` ("dense" or "ssm"). Returns (x, cache); a
+    given cache is updated in place."""
+    if kind == "ssm":
+        h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+        if cache is None:
+            y, _ = ssm.mamba2_block(p["mamba"], h, cfg.d_model, cfg.ssm,
+                                    impl=pctx.attn_impl)
+        elif h.shape[1] == 1:  # decode
+            y, new = ssm.mamba2_decode_step(p["mamba"], h[:, 0], cache,
+                                            cfg.d_model, cfg.ssm)
+            _write(cache, new)
+            y = y[:, None]
+        else:  # prefill: the full sequence, then the decode state
+            y, new = ssm.mamba2_prefill(p["mamba"], h, cfg.d_model, cfg.ssm,
+                                        impl=pctx.attn_impl)
+            _write(cache, new)
+        return x + y, cache
     out, cache = attn_block_fwd(p, x, cfg, positions=positions, window=window,
                                 causal=causal, cache=cache, pctx=pctx)
     x = x + out
@@ -67,14 +102,21 @@ def block_fwd(p: dict, x, cfg: ModelConfig, *, positions, window: int = 0,
     return x + layers.mlp(p["mlp"], h, cfg.mlp_type), cache
 
 
-def run_stack(params_stack: dict, x, cfg: ModelConfig, *, positions,
-              window: int = 0, causal: bool = True, caches: Any = None,
-              pctx: ParallelCtx):
+def _depth(tree) -> int:
+    """The length of the leading L axis of a stacked tree."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
+              positions, window: int = 0, causal: bool = True,
+              caches: Any = None, pctx: ParallelCtx):
     """Run the L stacked layers in order. Returns (x, caches); ``caches``
     (stacked on L) is updated in place."""
-    for i in range(params_stack["ln1"].shape[0]):
+    for i in range(_depth(params_stack)):
         cache_l = None if caches is None else lane_slice(caches, i)
-        x, _ = block_fwd(lane_slice(params_stack, i), x, cfg,
+        x, _ = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
                          positions=positions, window=window, causal=causal,
                          cache=cache_l, pctx=pctx)
     return x, caches

@@ -37,8 +37,26 @@ def test_import_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 35   # configs, kernels, models, core, launch, optim,
+    assert out["n"] >= 37   # configs, kernels, models, core, launch, optim,
                             # data, checkpoint
+    assert out["bad"] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.ssm",
+                                    "repro_torch.kernels.ssd_scan",
+                                    "repro_torch.kernels.ops"])
+def test_ssm_slice_modules_load_no_jax(module):
+    """Each module of the SSM slice, imported alone in a fresh interpreter
+    (so no other import has pulled its dependencies in first)."""
+    code = (f"import json, sys, {module}\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(json.dumps({'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
 
 
@@ -66,7 +84,7 @@ def test_port_calls_no_library_attention_or_compiler(path):
 
 
 KERNEL_MODULES = ["kernels/flash_attention.py", "kernels/packed_gemm.py",
-                  "kernels/fused_rmsnorm.py"]
+                  "kernels/fused_rmsnorm.py", "kernels/ssd_scan.py"]
 TORCH_MATH = ("matmul", "bmm", "mm", "baddbmm", "einsum", "softmax", "rsqrt",
               "exp", "rms_norm")
 

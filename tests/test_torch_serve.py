@@ -1,6 +1,7 @@
 """The port's continuous-batching ``BatchServer``: greedy tokens equal to the
 JAX ``BatchServer`` on the same parameters and requests, and the decode
-accounting and lane-isolation invariants of tests/test_serve_continuous.py."""
+accounting and lane-isolation invariants of tests/test_serve_continuous.py,
+for the dense family (KV caches) and the ssm family (Mamba2 states)."""
 import jax
 import numpy as np
 import pytest
@@ -16,19 +17,21 @@ from repro_torch.launch.serve import BatchServer, Request
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 
-ARCH = "stablelm-1.6b"
+ARCHS = ["stablelm-1.6b", "mamba2-130m"]
 
 
-@pytest.fixture(scope="module")
-def ref():
-    jm = jbuild(jconfigs.get(ARCH).reduced(), JCtx(moe_oracle=True))
+@pytest.fixture(scope="module", params=ARCHS)
+def ref(request):
+    """(jax model, jax params, the same params for the port, arch)."""
+    arch = request.param
+    jm = jbuild(jconfigs.get(arch).reduced(), JCtx(moe_oracle=True))
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
-                                     "cpu")
+                                     "cpu"), arch
 
 
 def _srv(ref, lanes, max_len=32, adaptive_lanes=False):
-    model = Model(configs.get(ARCH).reduced(), device="cpu")
+    model = Model(configs.get(ref[3]).reduced(), device="cpu")
     return BatchServer(model, ref[2], batch_lanes=lanes, max_len=max_len,
                        adaptive_lanes=adaptive_lanes)
 
@@ -43,13 +46,33 @@ def _mixed(cls):
 @pytest.mark.parametrize("lanes,adaptive", [(2, False), (3, False),
                                             (4, True)])
 def test_tokens_match_reference_server(ref, lanes, adaptive):
-    jm, jp, _ = ref
+    jm, jp, _, _ = ref
     want = JServer(jm, jp, batch_lanes=lanes, max_len=32,
                    adaptive_lanes=adaptive).run(_mixed(JRequest))
     srv = _srv(ref, lanes, adaptive_lanes=adaptive)
     got = srv.run(_mixed(Request))
     assert got == want
     assert srv.stats.lane_steps == sum(r.max_new for r in _mixed(Request))
+
+
+def _chunked(cls):
+    """Prompts whose padded length, 64, is a multiple of the reduced SSD
+    chunk (32), so a Mamba2 prefill scans two chunks."""
+    rng = np.random.default_rng(1)
+    lens, news = [20, 64, 33, 47, 9], [5, 3, 8, 2, 6]
+    return [cls(id=i, prompt=rng.integers(1, 256, s).astype(np.int32),
+                max_new=m) for i, (s, m) in enumerate(zip(lens, news))]
+
+
+@pytest.mark.parametrize("lanes,adaptive", [(2, False), (4, True)])
+def test_tokens_match_reference_server_over_chunks(ref, lanes, adaptive):
+    jm, jp, _, _ = ref
+    want = JServer(jm, jp, batch_lanes=lanes, max_len=80,
+                   adaptive_lanes=adaptive).run(_chunked(JRequest))
+    srv = _srv(ref, lanes, max_len=80, adaptive_lanes=adaptive)
+    assert srv.run(_chunked(Request)) == want
+    assert srv.stats.lane_steps == sum(r.max_new for r in _chunked(Request))
+    assert srv.stats.prefills == 5
 
 
 def test_decode_steps_equal_sum_max_new_not_batch_times_max(ref):
