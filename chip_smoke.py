@@ -6,8 +6,9 @@
 Phases, in order; any failure propagates and the exit code is non-zero:
 
 1. set-up: build every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), print the card's name and power
-   limit, turn TF32 off;
+   (one ``nvcc`` per source, all at once), count the tensor-core (HGMMA),
+   TMA (UTMALDG) and mbarrier (SYNCS) instructions in the SASS of the B1
+   and B3 libraries, print the card's name and power limit, turn TF32 off;
 2. [kernel] each kernel against its plain PyTorch version on the card:
    flash attention (B3) at the serving path's shape and at GQA / window /
    f32 / ragged / lane-masked cases; the packed GEMM (B1) at the reference
@@ -16,12 +17,15 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    (B4) at a reference test shape, ragged chunks, b = 4 and the serving
    prefill's shape, in f32 and bf16, through the model's strided views and
    lane-masked; each timed beside its bound and, where one exists, a
-   PyTorch library call;
+   PyTorch library call (CUDA events and profiler device time for both);
+   B1 and B3 run their tensor-core (wgmma) bodies on bf16 and their
+   CUDA-core (simt) bodies on f32;
 3. [small] a narrow f32 model served on the card (kernel path) and on the
    CPU (chunked path) from the same parameters must agree;
 4. [serve] the serving path: ``BatchServer`` serving 8 requests on
    full-width StableLM-2 1.6B (random weights from a seed), with every
-   kernel's launch count read around that run, then the same requests with
+   kernel's launch count read around that run (B3's by body: all on the
+   tensor-core body), then the same requests with
    ``adaptive_lanes``; [profile] device time by kernel and the device's idle
    share for one prefill and one 4-lane decode step (torch.profiler);
    [serve-ssm] the same for full-width mamba2-130m, whose prefills run B4
@@ -33,10 +37,10 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    time against concurrency (the paper's Figs 4-5);
 6. [train-kernel] the lane pool's "kernel" mode: ``LanePool(exec_mode=
    "kernel")`` running the reference's pool-level step, whose two GEMMs
-   go through B1, at J=16 and three occupancies, with every kernel's
-   launch count read around that run; then where / compact / kernel step
-   times; [profile] the idle share of one LeNet pool step and one
-   kernel-mode step.
+   go through B1 (its f32 body), at J=16 and three occupancies, with
+   every kernel's launch count read around that run; then where /
+   compact / kernel step times; [profile] the idle share of one LeNet
+   pool step and one kernel-mode step.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -46,6 +50,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -180,6 +187,7 @@ def setup() -> str:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    check_sass()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -189,6 +197,42 @@ def setup() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
+
+
+def _cuobjdump() -> str:
+    """The toolkit's cuobjdump: on PATH, under CUDA_HOME, or the copy in
+    Triton's package."""
+    cands = [shutil.which("cuobjdump"), os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
+    for cand in cands:
+        if cand and os.path.exists(cand):
+            return cand
+    import triton
+    cand = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
+    if cand.exists():
+        return str(cand)
+    raise AssertionError("cuobjdump not found: the SASS check needs it")
+
+
+# the libraries whose bf16 bodies run on the tensor cores, fed by TMA
+TENSOR_CORE_LIBS = ("packed_gemm", "flash_attention")
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def check_sass() -> None:
+    """Counts wgmma (HGMMA), TMA load (UTMALDG) and mbarrier (SYNCS)
+    instructions in the compiled code of B1 and B3; fails if either library
+    has no HGMMA or no UTMALDG."""
+    from repro_torch.kernels import _build
+    tool = _cuobjdump()
+    for name in TENSOR_CORE_LIBS:
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.library_path(name))], check=True,
+            capture_output=True, text=True, timeout=120).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        log(f"[build] {name} SASS: {counts}")
+        if not (counts["HGMMA"] and counts["UTMALDG"]):
+            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +266,8 @@ def kernel_wrappers() -> dict:
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        for body in getattr(fn, "launches_by_body", {}):
+            fn.launches_by_body[body] = 0
 
 
 def read_launches() -> dict:
@@ -266,6 +312,11 @@ def check_flash_attention() -> dict:
         ("f32_cross_ragged", 1, 100, 333, 8, 8, 64, f32, False, 0),
         ("f32_cross_causal", 2, 130, 70, 4, 2, 128, f32, True, 0),
         ("f32_bidir_window", 1, 200, 200, 4, 2, 64, f32, False, 48),
+        # the same masks and edges on the bf16 (wgmma) body
+        ("bidir", 1, 256, 256, 4, 4, 128, bf16, False, 0),
+        ("cross_ragged", 1, 100, 333, 8, 8, 64, bf16, False, 0),
+        ("cross_causal", 2, 130, 70, 4, 2, 128, bf16, True, 0),
+        ("bidir_window", 1, 200, 200, 4, 2, 64, bf16, False, 48),
     ]
     errs = {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window in cases:
@@ -288,7 +339,7 @@ def check_flash_attention() -> dict:
 
     # lane mask: inactive lanes exact zeros, active lanes bit-identical
     active = torch.tensor([1, 0, 1, 0], device="cuda")
-    for dt, D in ((bf16, 64), (f32, 128)):
+    for dt, D in ((bf16, 64), (bf16, 128), (f32, 128)):
         q, k, v = _qkv(gen, 4, 256, 256, 8, 4, D, dt)
         dense = fa.flash_attention_cuda(q, k, v, causal=True)
         masked = fa.flash_attention_cuda(q, k, v, causal=True, active=active)
@@ -311,20 +362,22 @@ def check_flash_attention() -> dict:
     plain_ms = cuda_time_ms(
         lambda: fa.flash_attention_plain(q, k, v, causal=True))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = cuda_time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    library_ms = cuda_time_ms(sdpa)
+    library_dev_ms = device_ms(sdpa)
     bound_ms, bound_by = attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal,
                                             window, dt)
-    log(f"[kernel] flash_attention {tuple(q.shape)} bf16 causal: kernel "
-        f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"[kernel] flash_attention {tuple(q.shape)} bf16 causal (wgmma "
+        f"body): kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (device "
+        f"{library_dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:159",
             "launches": None, "max_abs_err": errs["prefill"], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms}
 
 
 def _agree(out, ref) -> tuple:
@@ -355,10 +408,12 @@ def _check_lanes(masked, dense, active, what: str) -> None:
 
 
 def check_packed_gemm() -> dict:
-    """B1 against its plain version at the reference test shapes and the
-    pool step's shape, through a transposed view, and lane-masked; then
-    timed at the pool step's shape (the record) and at one StableLM-2 MLP
-    up-projection per lane."""
+    """B1 against its plain version at the reference test shapes, the pool
+    step's shape and one StableLM-2 MLP up-projection per lane, through a
+    transposed view, and lane-masked; in f32 (simt body) and bf16 (wgmma
+    body). bf16 operands TMA cannot describe are copied (counted); at the
+    pool and MLP shapes none may be. Then timed at the pool step's shape
+    (f32, the record) and at the MLP shape (bf16, the record's "wgmma")."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import packed_gemm as pg
@@ -368,29 +423,39 @@ def check_packed_gemm() -> dict:
     errs = {}
     for dt in (f32, bf16):
         for J, M, K, N in ((4, 64, 64, 64), (3, 50, 70, 30), (8, 128, 32, 16),
-                           (1, 16, 16, 16), POOL_GEMM):
+                           (1, 16, 16, 16), POOL_GEMM, MLP_GEMM):
             x, w = mk(J, M, K, dt=dt), mk(J, K, N, dt=dt)
+            copies = pg.packed_gemm_cuda.padded_copies
             out = pg.packed_gemm_cuda(x, w)
             torch.cuda.synchronize()
+            copies = pg.packed_gemm_cuda.padded_copies - copies
             ok, err = _agree(out, pg.packed_gemm_plain(x, w))
             errs[(J, M, K, N, str(dt))] = err
-            log(f"[kernel] packed_gemm ({J},{M},{K},{N}) {dt}: max_abs_err "
-                f"{err:.3g} ({_tol_text(dt)})")
+            log(f"[kernel] packed_gemm ({J},{M},{K},{N}) {dt} "
+                f"({pg.gemm_body(dt)} body): max_abs_err {err:.3g} "
+                f"({_tol_text(dt)}), padded copies {copies}")
             if not ok:
                 raise AssertionError(f"packed_gemm ({J},{M},{K},{N}) {dt}: "
                                      f"kernel disagrees with its plain "
                                      f"version (max err {err})")
+            if (J, M, K, N) in (POOL_GEMM, MLP_GEMM) and copies:
+                raise AssertionError(f"packed_gemm ({J},{M},{K},{N}): "
+                                     f"{copies} operands copied")
     # the gradient GEMM's x^T: a strided view, read without a copy
-    x, e = mk(16, 256, 128, dt=f32), mk(16, 256, 64, dt=f32)
-    xt = x.transpose(1, 2)
-    out = pg.packed_gemm_cuda(xt, e)
-    ok, err = _agree(out, pg.packed_gemm_plain(xt, e))
-    same = torch.equal(out, pg.packed_gemm_cuda(xt.contiguous(), e))
-    log(f"[kernel] packed_gemm x^T view {tuple(xt.shape)} strides "
-        f"{xt.stride()}: max_abs_err {err:.3g}, equal to the contiguous "
-        f"copy {same}")
-    if not (ok and same):
-        raise AssertionError("packed_gemm: transposed view disagrees")
+    for dt in (f32, bf16):
+        x, e = mk(16, 256, 128, dt=dt), mk(16, 256, 64, dt=dt)
+        xt = x.transpose(1, 2)
+        copies = pg.packed_gemm_cuda.padded_copies
+        out = pg.packed_gemm_cuda(xt, e)
+        copies = pg.packed_gemm_cuda.padded_copies - copies
+        ok, err = _agree(out, pg.packed_gemm_plain(xt, e))
+        same = torch.equal(out, pg.packed_gemm_cuda(xt.contiguous(), e))
+        log(f"[kernel] packed_gemm x^T view {tuple(xt.shape)} strides "
+            f"{xt.stride()} {dt}: max_abs_err {err:.3g}, equal to the "
+            f"contiguous copy {same}, padded copies {copies}")
+        if not (ok and same and copies == 0):
+            raise AssertionError(f"packed_gemm: transposed view disagrees "
+                                 f"or was copied ({dt})")
     for dt in (f32, bf16):
         x, w = mk(4, 64, 64, dt=dt), mk(4, 64, 64, dt=dt)
         dense = ops.packed_matmul(x, w)
@@ -409,22 +474,28 @@ def check_packed_gemm() -> dict:
         dev_ms = device_ms(lambda: pg.packed_gemm_cuda(x, w))
         plain_ms = cuda_time_ms(lambda: pg.packed_gemm_plain(x, w))
         library_ms = cuda_time_ms(lambda: torch.bmm(x, w))
+        library_dev_ms = device_ms(lambda: torch.bmm(x, w))
         b_ms, b_by = bound_ms(2 * J * M * K * N,
                               (J * M * K + J * K * N + J * M * N)
                               * dt.itemsize, PEAK_FLOPS[str(dt)])
-        timed[label] = (ms, dev_ms, plain_ms, library_ms, b_ms, b_by)
-        log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt}: kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"torch.bmm "
-            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    ms, dev_ms, plain_ms, library_ms, b_ms, b_by = timed["pool step"]
+        timed[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": library_ms,
+                        "library_device_ms": library_dev_ms}
+        log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt} "
+            f"({pg.gemm_body(dt)} body): kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, torch.bmm "
+            f"{library_ms:.4f} ms (device {library_dev_ms:.4f}), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    mlp = dict(timed["MLP up-projection"], shape=list(MLP_GEMM),
+               dtype="bfloat16",
+               max_abs_err=errs[MLP_GEMM + ("torch.bfloat16",)])
     return {"name": "packed_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/packed_gemm.cu",
             "replaces": "src/repro/kernels/packed_gemm.py:69",
             "launches": None,
-            "max_abs_err": errs[POOL_GEMM + ("torch.float32",)], "ms": ms,
-            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "max_abs_err": errs[POOL_GEMM + ("torch.float32",)],
+            **timed["pool step"], "wgmma": mlp}
 
 
 def _norm_bound(x, w) -> tuple:
@@ -510,18 +581,20 @@ def check_rmsnorm() -> list:
                 "max_abs_err": errs[("packed",) + POOL_NORM
                                     + ("torch.float32",)],
                 "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library_device_ms": None})
     x, w = mk(*ROW_NORM, dt=bf16), (1 + 0.1 * mk(ROW_NORM[-1], dt=f32)).to(
         bf16)
     ms = cuda_time_ms(lambda: rn.fused_rmsnorm_cuda(x, w))
     dev_ms = device_ms(lambda: rn.fused_rmsnorm_cuda(x, w))
     plain_ms = cuda_time_ms(lambda: rn.fused_rmsnorm_plain(x, w))
-    library_ms = cuda_time_ms(
-        lambda: F.rms_norm(x, (ROW_NORM[-1],), w, eps=1e-5))
+    rms_norm = lambda: F.rms_norm(x, (ROW_NORM[-1],), w, eps=1e-5)
+    library_ms = cuda_time_ms(rms_norm)
+    library_dev_ms = device_ms(rms_norm)
     b_ms, b_by = _norm_bound(x, w)
     log(f"[kernel] fused_rmsnorm {ROW_NORM} bf16: kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, F.rms_norm "
-        f"{library_ms:.4f} ms, bound "
+        f"{library_ms:.4f} ms (device {library_dev_ms:.4f}), bound "
         f"{b_ms:.4f} ms ({b_by})")
     records.append({
         "name": "fused_rmsnorm", "route": "cuda",
@@ -530,7 +603,8 @@ def check_rmsnorm() -> list:
         "launches": launches["fused_rmsnorm"],
         "max_abs_err": errs[("fused",) + ROW_NORM + ("torch.bfloat16",)],
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": library_ms})
+        "bound_by": b_by, "library_ms": library_ms,
+        "library_device_ms": library_dev_ms})
     return records
 
 
@@ -678,7 +752,7 @@ def check_ssd_scan() -> dict:
             "launches": None,
             "max_abs_err": errs[SSD_SERVE + ("torch.bfloat16",)], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "bound_by": b_by, "library_ms": None, "library_device_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -756,8 +830,11 @@ def serve_full(record: dict):
     out = srv.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    from repro_torch.kernels import flash_attention as fa
     launches = read_launches()["flash_attention_fwd"]
+    by_body = dict(fa.flash_attention_cuda.launches_by_body)
     record["launches"] = launches
+    record["launches_by_body"] = by_body
     st = srv.stats
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_tokens = st.lane_steps - st.prefills
@@ -766,7 +843,8 @@ def serve_full(record: dict):
         f"{min(r.max_new for r in reqs)}-{max(r.max_new for r in reqs)}: "
         f"wall {wall:.3f} s, prefills {st.prefills}, global_steps "
         f"{st.global_steps}, lane_steps {st.lane_steps}, lane_slots "
-        f"{st.lane_slots}, flash_attention launches {launches}")
+        f"{st.lane_slots}, flash_attention launches {launches} (by body "
+        f"{by_body})")
     log(f"[serve] prefill {1e3 * st.prefill_s / st.prefills:.2f} ms/request "
         f"(S_pad {max(len(r.prompt) for r in reqs)}), decode "
         f"{decode_tokens / st.decode_s:.1f} tokens/s over "
@@ -778,6 +856,10 @@ def serve_full(record: dict):
     if launches != st.prefills * N_LAYERS_FULL or launches == 0:
         raise AssertionError(f"flash_attention launches {launches} != "
                              f"prefills {st.prefills} x {N_LAYERS_FULL}")
+    if by_body["wgmma"] != launches:
+        raise AssertionError(f"flash_attention: the bf16 prefills launched "
+                             f"the tensor-core body {by_body['wgmma']} of "
+                             f"{launches} times")
     for r in reqs:
         toks = out[r.id]
         if len(toks) != r.max_new or not all(0 <= t < cfg.padded_vocab
@@ -1241,13 +1323,19 @@ def train_kernel(record: dict) -> tuple:
                        (pool.params, pool.opt_state, pool.hparams))
         pool.step(batch)
         runs.append((occ, mask, before, packing.tree_copy(pool.params)))
+    from repro_torch.kernels import packed_gemm as pg
     launches = read_launches()
+    by_body = dict(pg.packed_gemm_cuda.launches_by_body)
     record["launches"] = launches["packed_gemm"]
-    log(f"[train-kernel] launches in the pool's run: {launches}; kernel-mode "
-        f"pool steps {len(runs)}, n_traces {pool.n_traces}")
-    if launches["packed_gemm"] != 2 * len(runs):
+    record["launches_by_body"] = by_body
+    log(f"[train-kernel] launches in the pool's run: {launches}; packed_gemm "
+        f"by body {by_body}; kernel-mode pool steps {len(runs)}, n_traces "
+        f"{pool.n_traces}")
+    if launches["packed_gemm"] != 2 * len(runs) \
+            or by_body["simt"] != launches["packed_gemm"]:
         raise AssertionError(f"packed_gemm launched {launches['packed_gemm']}"
-                             f" times for {len(runs)} kernel-mode pool steps")
+                             f" times ({by_body}) for {len(runs)} f32 "
+                             f"kernel-mode pool steps")
 
     dense = packing.masked_pool_step(kernel_pool_step, mode="kernel")
     where = packing.masked_pool_step(lane_step, mode="where")

@@ -13,6 +13,14 @@ sliding-window masks with positions counted from 0 in both q and k; f32
 softmax statistics; the denominator clamped at 1e-30. ``active`` (B,) makes
 inactive batch lanes exact zeros and leaves active lanes bit-identical to
 the call without it.
+
+Two hand-written bodies, chosen by dtype and head dim (``attention_body``):
+bf16 runs the tensor-core body (``wgmma`` products, Q/K/V tiles fed by
+TMA), f32 the CUDA-core body (the tensor cores take f32 only as TF32, which
+the port does not use); head dims 64 and 128 only.
+``flash_attention_cuda.launches_by_body`` counts each; ``launches`` is their
+sum. The bf16 body reads q, k, v through TMA tensor maps over their own
+strides: a base or a stride that is not a multiple of 16 bytes raises.
 """
 from __future__ import annotations
 
@@ -21,12 +29,28 @@ import math
 
 import torch
 
+from repro_torch.kernels import tma
 from repro_torch.kernels.ref import mask_lanes
 
 NEG_INF = -1e30
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BODY = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _HEAD_DIMS = (64, 128)
+_LOG2E = 1.4426950408889634
+
+
+def attention_body(dtype, head_dim: int) -> str:
+    """The hand-written body that takes ``dtype`` and ``head_dim``: "wgmma"
+    (tensor cores) for bfloat16, "simt" (CUDA cores) for float32; raises for
+    any other dtype or a head dim other than 64 or 128."""
+    body = _BODY.get(dtype)
+    if body is None:
+        raise ValueError(f"flash_attention_cuda: no kernel body for dtype "
+                         f"{dtype}; bodies take {tuple(_BODY)}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim {head_dim} not in "
+                         f"{_HEAD_DIMS}")
+    return body
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -52,12 +76,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out if active is None else mask_lanes(active, out)
 
 
-def _bind():
+def _bind(body: str):
     from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    return _build.entry("flash_attention", "repro_flash_attention_fwd",
+    symbol = ("repro_flash_attention_fwd" if body == "simt"
+              else "repro_flash_attention_fwd_wgmma")
+    return _build.entry("flash_attention", symbol,
                         [p] * 5 + [i] * 6 + [ll] * 12
-                        + [i, i, ctypes.c_float, i, p])
+                        + [i, i, ctypes.c_float, p])
+
+
+def _tma_strides(t) -> tuple:
+    """(b, s, h) element strides of ``t`` for a tensor map, or raise: a
+    layout TMA cannot describe (``tma.describable``) has no body to take
+    it in bf16."""
+    if not tma.describable(t.shape, t.stride(), 3, t.data_ptr(),
+                           t.element_size()):
+        raise ValueError(f"flash_attention_cuda: the bf16 body reads q, k, "
+                         f"v through TMA, which needs 16-byte aligned bases "
+                         f"and strides; got strides {t.stride()} at address "
+                         f"{t.data_ptr():#x}")
+    return tma.map_strides(t.shape, t.stride())[:3]
 
 
 def _check(q, k, v, window: int):
@@ -70,16 +109,12 @@ def _check(q, k, v, window: int):
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"flash_attention_cuda: {name} must be 4-D "
                              f"(B,S,H,D) with a contiguous last dim")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not in "
-                         f"{tuple(_DTYPE_CODE)}")
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     if tuple(v.shape) != tuple(k.shape) or Bk != B or Dk != D:
         raise ValueError(f"flash_attention_cuda: shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {D} not in {_HEAD_DIMS}")
+    attention_body(q.dtype, D)
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention_cuda: {Hq} q heads not a multiple "
                          f"of {Hkv} kv heads")
@@ -89,12 +124,15 @@ def _check(q, k, v, window: int):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          active=None):
-    """Launch the Hopper kernel on CUDA tensors (raises on anything else).
-    ``flash_attention_cuda.launches`` counts the launches."""
+    """Launch the Hopper kernel on CUDA tensors (raises on anything else):
+    the wgmma body for bf16, the simt body for f32.
+    ``flash_attention_cuda.launches`` counts the launches and
+    ``launches_by_body`` splits them by body."""
     _check(q, k, v, window)
-    fn = _bind()
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
+    body = attention_body(q.dtype, D)
+    fn = _bind(body)
     act = None
     if active is not None:
         act = torch.as_tensor(active, device=q.device).to(torch.int32)
@@ -103,23 +141,29 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                              f"entries for batch {B}")
         act = act.reshape(B).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if body == "simt":
+        strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        scale = 1.0 / math.sqrt(D)
+    else:
+        strides = (*_tma_strides(q), *_tma_strides(k), *_tma_strides(v))
+        scale = _LOG2E / math.sqrt(D)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if act is None else act.data_ptr(),
-                 B, Sq, Sk, Hq, Hkv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3],
-                 int(causal), int(window), 1.0 / math.sqrt(D),
-                 _DTYPE_CODE[q.dtype],
+                 B, Sq, Sk, Hq, Hkv, D, *strides, *out.stride()[:3],
+                 int(causal), int(window), scale,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_cuda: launch failed with CUDA "
-                           f"error {err}")
+        what = ("tensor map refused (CUresult %d)" % -err if err < 0
+                else "CUDA error %d" % err)
+        raise RuntimeError(f"flash_attention_cuda: launch failed: {what}")
+    flash_attention_cuda.launches_by_body[body] += 1
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_body = {"wgmma": 0, "simt": 0}
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,

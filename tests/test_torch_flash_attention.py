@@ -188,6 +188,40 @@ def test_no_card_raises_instead_of_falling_back(call, exc):
         call()
 
 
+@pytest.mark.parametrize("dtype,D,body", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float16, 64, None), (torch.float64, 128, None),
+    (torch.bfloat16, 32, None), (torch.float32, 96, None),
+])
+def test_attention_body_by_dtype_and_head_dim(dtype, D, body):
+    """bf16 runs the tensor-core body, f32 the CUDA-core body (no TF32),
+    head dims 64 and 128 only; anything else has no body and raises."""
+    if body is None:
+        with pytest.raises(ValueError, match="no kernel body|head dim"):
+            fa.attention_body(dtype, D)
+    else:
+        assert fa.attention_body(dtype, D) == body
+    assert set(fa.flash_attention_cuda.launches_by_body) == {"wgmma", "simt"}
+
+
+def test_tma_strides_of_q_k_v():
+    """The bf16 body's tensor maps take (b, s, h) strides in elements: a
+    contiguous (B,S,H,D) tensor's own, a length-1 batch axis's replaced by
+    one a map accepts; a base that is not 16-byte aligned raises, since no
+    other body may take a bf16 input."""
+    q = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+    assert fa._tma_strides(q) == q.stride()[:3]
+    one = torch.zeros(1, 64, 4, 64, dtype=torch.bfloat16)
+    sb, ss, sh = fa._tma_strides(one)
+    assert (ss, sh) == (256, 64) and sb % 8 == 0
+    heads = torch.zeros(1, 64, 6, 64, dtype=torch.bfloat16)[:, :, 1:5]
+    assert fa._tma_strides(heads)[1:] == (384, 64)
+    flat = torch.zeros(2 * 64 * 4 * 64 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._tma_strides(flat.view(2, 64, 4, 64))
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     """With no library built and no nvcc on the machine, building raises
     (it never leaves the CUDA path without its kernel)."""

@@ -25,6 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import fused_rmsnorm as rn
 from repro_torch.kernels import ops
 from repro_torch.kernels import packed_gemm as pg
+from repro_torch.kernels import tma
 from tests.prop import given_cases
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -269,6 +270,127 @@ def test_entry_binds_each_c_function_once(monkeypatch):
 
 
 def test_shipped_sources_include_the_shared_header():
+    """Every source includes dtype.cuh, and every source that uses TMA or
+    wgmma takes them from tma.cuh (whose edits then rebuild it)."""
+    assert {"packed_gemm", "flash_attention"} <= set(_build.SOURCES)
     for name in _build.SOURCES:
         text = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "dtype.cuh"' in text, name
+        uses_tma = any(word in text for word in (
+            "CUtensorMap", "tma_load", "wgmma_", "mbar_"))
+        assert uses_tma == ('#include "tma.cuh"' in text), name
+        assert uses_tma == (name in ("packed_gemm", "flash_attention")), name
+        assert "cp.async.bulk.tensor" not in text, name
+    header = (_build.CSRC / "tma.cuh").read_text()
+    for helper in ("cuTensorMapEncodeTiled", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait.parity", "wgmma.fence",
+                   "m64n256k16", "m64n128k16",
+                   "m64n64k16", "setmaxnreg"):
+        assert helper in header, helper
+
+
+# ---------------------------------------------------------------------------
+# B1's bodies and the bf16 body's operand layouts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "simt"),
+                                        (torch.float16, None),
+                                        (torch.float64, None)])
+def test_gemm_body_by_dtype(dtype, body):
+    """bf16 runs the tensor-core body, f32 the CUDA-core body (no TF32);
+    any other dtype has no body and raises."""
+    if body is None:
+        with pytest.raises(ValueError, match="no kernel body"):
+            pg.gemm_body(dtype)
+    else:
+        assert pg.gemm_body(dtype) == body
+    assert set(pg.packed_gemm_cuda.launches_by_body) == {"wgmma", "simt"}
+
+
+def _unaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor whose storage starts one element past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    t = torch.zeros(n + 1, dtype=dtype)[1:].view(*shape)
+    assert t.data_ptr() % 16 == t.element_size()
+    return t
+
+
+def _layout(x, w):
+    return pg.wgmma_layout(x.shape, x.stride(), x.data_ptr(), w.shape,
+                           w.stride(), w.data_ptr(), x.element_size())
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", ("k", "n")),
+    ("pool_shape", ("k", "n")),
+    ("gradient_xT", ("m", "n")),
+    ("K70", ("copy", "copy")),
+    ("unaligned_offset", ("copy", "copy")),
+    ("w_transposed", ("k", "copy")),
+])
+def test_wgmma_layout_decision(case, want):
+    """How the bf16 body reads each operand, from shapes, strides and base
+    alignment: K-major or M-major x, N-major w, or a padded copy."""
+    bf16 = torch.bfloat16
+    if case == "contiguous":
+        x, w = torch.zeros(4, 64, 64, dtype=bf16), torch.zeros(4, 64, 64,
+                                                                dtype=bf16)
+    elif case == "pool_shape":
+        x, w = torch.zeros(16, 256, 256, dtype=bf16), torch.zeros(
+            16, 256, 256, dtype=bf16)
+    elif case == "gradient_xT":
+        x = torch.zeros(16, 256, 128, dtype=bf16).transpose(1, 2)
+        w = torch.zeros(16, 256, 64, dtype=bf16)
+    elif case == "K70":
+        x, w = torch.zeros(3, 50, 70, dtype=bf16), torch.zeros(3, 70, 30,
+                                                               dtype=bf16)
+    elif case == "unaligned_offset":
+        x, w = _unaligned((4, 64, 64)), _unaligned((4, 64, 64))
+    else:
+        x = torch.zeros(4, 64, 64, dtype=bf16)
+        w = torch.zeros(4, 64, 64, dtype=bf16).transpose(1, 2)
+    assert _layout(x, w) == want
+
+
+def test_wgmma_layout_at_the_mlp_shape():
+    """Contiguous operands of one StableLM-2 MLP up-projection per lane
+    (shapes and strides only) need no copy."""
+    J, M, K, N = 4, 512, 2048, 5632
+    assert pg.wgmma_layout((J, M, K), (M * K, K, 1), 0, (J, K, N),
+                           (K * N, N, 1), 1 << 20) == ("k", "n")
+
+
+def test_wgmma_layout_ignores_strides_of_length_one_axes():
+    """An axis of length 1 is never stepped over, so its stride does not
+    decide the layout; ``tma.map_strides`` gives it one a map takes."""
+    got = pg.wgmma_layout((1, 16, 16), (3, 16, 1), 0, (1, 16, 16),
+                          (5, 16, 1), 0)
+    assert got == ("k", "n")
+    strides = tma.map_strides((1, 16, 16), (3, 16, 1))
+    assert strides[1:] == (16, 1)
+    assert strides[0] % 8 == 0 and strides[0] >= 16 * 16
+
+
+@pytest.mark.parametrize("J,M,K,N", [(3, 50, 70, 30), (1, 16, 9, 5),
+                                     (2, 8, 64, 24)])
+def test_padded_copy_round_trip(J, M, K, N):
+    """The zero-padded copy cut back equals its input; its extra columns
+    are zeros; the plain product of padded operands equals the unpadded
+    one (zero products add exact zeros)."""
+    x_np, w_np = _arrays(J + M + K + N, (J, M, K), (J, K, N))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(x_np).to(dtype)
+        w = torch.from_numpy(w_np).to(dtype)
+        xp, wp = pg.padded_copy(x), pg.padded_copy(w)
+        assert xp.is_contiguous() and xp.shape[2] % 8 == 0
+        assert xp.shape[2] - K < 8 and wp.shape[2] - N < 8
+        assert torch.equal(xp[..., :K], x) and torch.equal(wp[..., :N], w)
+        assert not xp[..., K:].any() and not wp[..., N:].any()
+        assert _layout(xp.to(torch.bfloat16), wp.to(torch.bfloat16)) == (
+            "k", "n")
+        w_rows = torch.nn.functional.pad(wp, (0, 0, 0, xp.shape[2] - K))
+        got = pg.packed_gemm_plain(xp, w_rows)[..., :N]
+        np.testing.assert_allclose(_np(got), _np(pg.packed_gemm_plain(x, w)),
+                                   **TOL[str(dtype).split(".")[1]])
