@@ -6,18 +6,22 @@
 Phases, in order; any failure propagates and the exit code is non-zero:
 
 1. set-up: build every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), count the tensor-core (HGMMA),
+   (one ``nvcc`` per source, all at once), print each kernel's registers
+   and spills (``ptxas -v``), count the tensor-core (HGMMA),
    TMA (UTMALDG) and mbarrier (SYNCS) instructions in the SASS of the B1
    and B3 libraries, print the card's name and power limit, turn TF32 off;
 2. [kernel] each kernel against its plain PyTorch version on the card:
    flash attention (B3) at the serving path's shape and at GQA / window /
    f32 / ragged / lane-masked cases; the packed GEMM (B1) at the reference
-   test shapes, strided and lane-masked; the RMSNorm pair (B2 lane-batched,
-   B5 rows), masked, and B2's lanes against B5 bit for bit; the SSD scan
-   (B4) at a reference test shape, ragged chunks, b = 4 and the serving
-   prefill's shape, in f32 and bf16, through the model's strided views and
-   lane-masked; each timed beside its bound and, where one exists, a
-   PyTorch library call (CUDA events and profiler device time for both);
+   test shapes, strided and lane-masked, timed in both of the kernel-mode
+   step's orientations (x, and the gradient GEMM's x^T view); the RMSNorm
+   pair (B2 lane-batched, B5 rows), masked, and B2's lanes against B5 bit
+   for bit, on rows held in registers and on longer rows read twice; the
+   SSD scan (B4) at a reference test shape, ragged chunks, b = 4 and the
+   serving prefill's shape, in f32 and bf16, through the model's strided
+   views and lane-masked; each timed beside its bound and, where one
+   exists, a PyTorch library call (CUDA events and profiler device time
+   for both);
    B1 and B3 run their tensor-core (wgmma) bodies on bf16 and their
    CUDA-core (simt) bodies on f32;
 3. [small] a narrow f32 model served on the card (kernel path) and on the
@@ -113,6 +117,9 @@ MLP_GEMM = (4, 512, 2048, 5632)
 POOL_NORM = (16, 256, 256)
 WIDE_NORM = (4, 2048, 2048)
 ROW_NORM = (1, 1024, 2048)
+# a row longer than the RMSNorm kernels' register routine holds (a 7B-class
+# model's width): it takes the two-read routine in bf16 and f32
+LONG_NORM = (2, 64, 4096)
 # the kernel-mode pool: J, d, o, nb (benchmarks/bench_kernels.py:164-166)
 KERNEL_POOL = (16, 256, 256, 256)
 LENET_BATCH = 64            # the paper's batch (§III-A)
@@ -184,9 +191,9 @@ def setup() -> str:
     log(f"[build] {sorted(logs) or 'cached'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, regs, spill_st, spill_ld in kernel_resources(text):
+            log(f"[build] {name}: {kernel}: {regs} registers, spill stores "
+                f"{spill_st} B, spill loads {spill_ld} B")
     check_sass()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -197,6 +204,35 @@ def setup() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return card
+
+
+def kernel_resources(ptxas_log: str) -> list:
+    """(kernel, registers, spill-store bytes, spill-load bytes) of each
+    entry function in an ``nvcc -Xptxas -v`` log, names demangled by the
+    toolkit's cu++filt where it has one."""
+    rows, name, spills = [], None, ("?", "?")
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = m.group(1), ("?", "?")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), *spills])
+            name = None
+    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cu++filt")
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for row, pretty in zip(rows, names):
+                row[0] = pretty.replace("(anonymous namespace)::", "")
+    return [tuple(r) for r in rows]
 
 
 def _cuobjdump() -> str:
@@ -413,7 +449,9 @@ def check_packed_gemm() -> dict:
     transposed view, and lane-masked; in f32 (simt body) and bf16 (wgmma
     body). bf16 operands TMA cannot describe are copied (counted); at the
     pool and MLP shapes none may be. Then timed at the pool step's shape
-    (f32, the record) and at the MLP shape (bf16, the record's "wgmma")."""
+    (f32, the record), at the same shape with x the gradient GEMM's x^T
+    view (f32, the record's "xt"), and at the MLP shape (bf16, the record's
+    "wgmma"), each beside ``torch.bmm`` on the same operands."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import packed_gemm as pg
@@ -468,8 +506,13 @@ def check_packed_gemm() -> dict:
 
     timed = {}
     for label, (J, M, K, N), dt in (("pool step", POOL_GEMM, f32),
+                                    ("pool step x^T", POOL_GEMM, f32),
                                     ("MLP up-projection", MLP_GEMM, bf16)):
-        x, w = mk(J, M, K, dt=dt), mk(J, K, N, dt=dt)
+        if label.endswith("x^T"):  # the gradient GEMM's operands: x^T a view
+            x = mk(J, K, M, dt=dt).transpose(1, 2)
+        else:
+            x = mk(J, M, K, dt=dt)
+        w = mk(J, K, N, dt=dt)
         ms = cuda_time_ms(lambda: pg.packed_gemm_cuda(x, w))
         dev_ms = device_ms(lambda: pg.packed_gemm_cuda(x, w))
         plain_ms = cuda_time_ms(lambda: pg.packed_gemm_plain(x, w))
@@ -482,20 +525,28 @@ def check_packed_gemm() -> dict:
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms,
                         "library_device_ms": library_dev_ms}
-        log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt} "
-            f"({pg.gemm_body(dt)} body): kernel {ms:.4f} ms (device "
-            f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, torch.bmm "
-            f"{library_ms:.4f} ms (device {library_dev_ms:.4f}), bound "
-            f"{b_ms:.4f} ms ({b_by})")
+        log(f"[kernel] packed_gemm {label} ({J},{M},{K},{N}) {dt} strides "
+            f"x {x.stride()} ({pg.gemm_body(dt)} body): kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, torch.bmm "
+            f"{library_ms:.4f} ms (device {library_dev_ms:.4f}) on the same "
+            f"operands, bound {b_ms:.4f} ms ({b_by})")
+        if label.endswith("x^T"):
+            ok, err = _agree(pg.packed_gemm_cuda(x, w),
+                             pg.packed_gemm_plain(x, w))
+            if not ok:
+                raise AssertionError(f"packed_gemm {label}: kernel disagrees "
+                                     f"(max err {err})")
+            timed[label].update(max_abs_err=err, strides=list(x.stride()))
     mlp = dict(timed["MLP up-projection"], shape=list(MLP_GEMM),
                dtype="bfloat16",
                max_abs_err=errs[MLP_GEMM + ("torch.bfloat16",)])
+    xt = dict(timed["pool step x^T"], shape=list(POOL_GEMM), dtype="float32")
     return {"name": "packed_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/packed_gemm.cu",
             "replaces": "src/repro/kernels/packed_gemm.py:69",
             "launches": None,
             "max_abs_err": errs[POOL_GEMM + ("torch.float32",)],
-            **timed["pool step"], "wgmma": mlp}
+            **timed["pool step"], "wgmma": mlp, "xt": xt}
 
 
 def _norm_bound(x, w) -> tuple:
@@ -504,9 +555,17 @@ def _norm_bound(x, w) -> tuple:
                     * x.element_size(), PEAK_FLOPS["torch.float32"])
 
 
+def _routine(d: int, dtype) -> str:
+    """Which row routine the RMSNorm kernels run for rows of d."""
+    from repro_torch.kernels import fused_rmsnorm as rn
+    vpl = rn.row_vectors(d, dtype)
+    return f"registers, {vpl} vectors per lane" if vpl else "two reads"
+
+
 def check_rmsnorm() -> list:
     """B2 and B5 against their plain versions, B2's masks, B2's active
-    lanes against B5 on each slice bit for bit, and their times. Returns
+    lanes against B5 on each slice bit for bit (rows held in registers,
+    and rows longer than that, read twice), and their times. Returns
     the two records; their launches are those of the mask and identity
     checks, made through the entry points (``ops.packed_norm`` and
     ``fused_rmsnorm.fused_rmsnorm``), since neither kernel is on a path of
@@ -520,25 +579,29 @@ def check_rmsnorm() -> list:
     f32, bf16 = torch.float32, torch.bfloat16
     errs = {}
     for dt in (f32, bf16):
-        for J, rows, d in ((4, 16, 32), POOL_NORM, (3, 7, 100), WIDE_NORM):
+        for J, rows, d in ((4, 16, 32), POOL_NORM, (3, 7, 100), WIDE_NORM,
+                           LONG_NORM, (3, 7, 4100)):
             x, w = mk(J, rows, d, dt=dt), (1 + 0.1 * mk(J, d, dt=f32)).to(dt)
             out = rn.packed_rmsnorm_cuda(x, w)
             torch.cuda.synchronize()
             ok, err = _agree(out, rn.packed_rmsnorm_plain(x, w))
             errs[("packed", J, rows, d, str(dt))] = err
-            log(f"[kernel] packed_rmsnorm ({J},{rows},{d}) {dt}: max_abs_err "
-                f"{err:.3g} ({_tol_text(dt)})")
+            log(f"[kernel] packed_rmsnorm ({J},{rows},{d}) {dt} "
+                f"({_routine(d, dt)}): max_abs_err {err:.3g} "
+                f"({_tol_text(dt)})")
             if not ok:
                 raise AssertionError(f"packed_rmsnorm ({J},{rows},{d}) {dt}: "
                                      f"kernel disagrees (max err {err})")
-        for shape in (ROW_NORM, (16, 32), (5, 7, 130)):
+        for shape in (ROW_NORM, (16, 32), (5, 7, 130), LONG_NORM[1:],
+                      (7, 4100)):
             x, w = mk(*shape, dt=dt), (1 + 0.1 * mk(shape[-1], dt=f32)).to(dt)
             out = rn.fused_rmsnorm_cuda(x, w)
             torch.cuda.synchronize()
             ok, err = _agree(out, rn.fused_rmsnorm_plain(x, w))
             errs[("fused",) + shape + (str(dt),)] = err
-            log(f"[kernel] fused_rmsnorm {shape} {dt}: max_abs_err "
-                f"{err:.3g} ({_tol_text(dt)})")
+            log(f"[kernel] fused_rmsnorm {shape} {dt} "
+                f"({_routine(shape[-1], dt)}): max_abs_err {err:.3g} "
+                f"({_tol_text(dt)})")
             if not ok:
                 raise AssertionError(f"fused_rmsnorm {shape} {dt}: kernel "
                                      f"disagrees (max err {err})")
@@ -559,19 +622,36 @@ def check_rmsnorm() -> list:
             f"zeros, active lanes bit-identical, every lane == fused_rmsnorm "
             f"on its slice bit for bit")
     launches = read_launches()
+    # the same for rows longer than the register routine holds
+    for dt in (f32, bf16):
+        J, rows, d = LONG_NORM
+        x, w = mk(J, rows, d, dt=dt), (1 + 0.1 * mk(J, d, dt=f32)).to(dt)
+        dense = rn.packed_rmsnorm_cuda(x, w)
+        masked = rn.packed_rmsnorm_cuda(x, w, active=torch.tensor(
+            (0, 1), device="cuda"))
+        _check_lanes(masked, dense, (0, 1), f"packed_rmsnorm {dt} d={d}")
+        for j in range(J):
+            if not torch.equal(dense[j], rn.fused_rmsnorm_cuda(x[j], w[j])):
+                raise AssertionError(f"packed_rmsnorm {dt} d={d}: lane {j} "
+                                     f"differs from fused_rmsnorm")
+        log(f"[kernel] packed_rmsnorm masked {LONG_NORM} {dt} "
+            f"({_routine(d, dt)}): inactive lane exact zeros, active lane "
+            f"bit-identical, every lane == fused_rmsnorm bit for bit")
 
     records = []
     for label, (J, rows, d), dt in (("pool", POOL_NORM, f32),
-                                    ("wide", WIDE_NORM, bf16)):
+                                    ("wide", WIDE_NORM, bf16),
+                                    ("wide", WIDE_NORM, f32),
+                                    ("long", LONG_NORM, bf16)):
         x, w = mk(J, rows, d, dt=dt), (1 + 0.1 * mk(J, d, dt=f32)).to(dt)
         ms = cuda_time_ms(lambda: rn.packed_rmsnorm_cuda(x, w))
         dev_ms = device_ms(lambda: rn.packed_rmsnorm_cuda(x, w))
         plain_ms = cuda_time_ms(lambda: rn.packed_rmsnorm_plain(x, w))
         b_ms, b_by = _norm_bound(x, w)
-        log(f"[kernel] packed_rmsnorm {label} {tuple(x.shape)} {dt}: kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"no library call "
-            f"(per-lane weights), bound {b_ms:.4f} ms ({b_by})")
+        log(f"[kernel] packed_rmsnorm {label} {tuple(x.shape)} {dt} "
+            f"({_routine(d, dt)}): kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms, no library call (per-lane weights), "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if label == "pool":
             records.append({
                 "name": "packed_rmsnorm", "route": "cuda",
@@ -592,7 +672,8 @@ def check_rmsnorm() -> list:
     library_ms = cuda_time_ms(rms_norm)
     library_dev_ms = device_ms(rms_norm)
     b_ms, b_by = _norm_bound(x, w)
-    log(f"[kernel] fused_rmsnorm {ROW_NORM} bf16: kernel {ms:.4f} ms (device "
+    log(f"[kernel] fused_rmsnorm {ROW_NORM} bf16 "
+        f"({_routine(ROW_NORM[-1], bf16)}): kernel {ms:.4f} ms (device "
         f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, F.rms_norm "
         f"{library_ms:.4f} ms (device {library_dev_ms:.4f}), bound "
         f"{b_ms:.4f} ms ({b_by})")

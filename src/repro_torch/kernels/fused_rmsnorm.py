@@ -11,6 +11,11 @@ versions compute the same functions in plain PyTorch (the reference's
 ``models.layers.rms_norm``): the CPU path and the tests use them, and the
 card compares the kernels against them.
 
+Each warp holds its row in registers, ``row_vectors(d, dtype)`` 16-byte
+vectors per lane (a power of two up to ``MAX_ROW_VECTORS``); a longer row
+is read twice instead (``row_vectors`` gives 0). Both kernels take the
+same count for the same d and dtype, so they run the same routine.
+
 Contract: f32 statistics, out = x * rsqrt(mean(x^2) + eps) * w rounded once
 to x.dtype (float32 or bfloat16; w has x's dtype). Inactive lanes are exact
 zeros. The kernels have no backward; their CUDA wrappers raise rather than
@@ -26,6 +31,21 @@ from repro_torch.kernels.ref import mask_lanes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
+# the largest register routine of csrc/rmsnorm.cu (instantiated for 1, 2,
+# 4 and 8 vectors per lane)
+MAX_ROW_VECTORS = 8
+
+
+def row_vectors(d: int, dtype) -> int:
+    """16-byte vectors each of a warp's 32 lanes holds for a row of ``d``
+    elements of ``dtype``: the least power of two whose 32 lanes cover the
+    row, or 0 past ``MAX_ROW_VECTORS`` (the row is then read twice)."""
+    per_vector = 16 // dtype.itemsize
+    need = -(-d // (32 * per_vector))
+    vpl = 1
+    while vpl < need:
+        vpl *= 2
+    return vpl if vpl <= MAX_ROW_VECTORS else 0
 
 
 def fused_rmsnorm_plain(x, w, *, eps: float = 1e-5):
@@ -46,9 +66,9 @@ def _bind(packed: bool):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if packed:
         return _build.entry("rmsnorm", "repro_packed_rmsnorm",
-                            [p] * 4 + [i] * 3 + [f, i, p])
+                            [p] * 4 + [i] * 3 + [f, i, i, p])
     return _build.entry("rmsnorm", "repro_fused_rmsnorm",
-                        [p] * 3 + [i] * 2 + [f, i, p])
+                        [p] * 3 + [i] * 2 + [f, i, i, p])
 
 
 def _check(name, x, w, w_shape):
@@ -90,7 +110,8 @@ def fused_rmsnorm_cuda(x, w, *, eps: float = 1e-5):
     fn = _bind(packed=False)
     out = torch.empty_like(x)
     _launch(fn, x, (x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    x.numel() // d, d, eps, _DTYPE_CODE[x.dtype]))
+                    x.numel() // d, d, eps, _DTYPE_CODE[x.dtype],
+                    row_vectors(d, x.dtype)))
     fused_rmsnorm_cuda.launches += 1
     return out
 
@@ -120,7 +141,7 @@ def packed_rmsnorm_cuda(x, w, *, active=None, eps: float = 1e-5):
     out = torch.empty_like(x)
     _launch(fn, x, (x.data_ptr(), w.data_ptr(), out.data_ptr(),
                     None if act is None else act.data_ptr(), J, rows, d, eps,
-                    _DTYPE_CODE[x.dtype]))
+                    _DTYPE_CODE[x.dtype], row_vectors(d, x.dtype)))
     packed_rmsnorm_cuda.launches += 1
     return out
 

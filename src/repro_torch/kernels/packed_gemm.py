@@ -21,11 +21,14 @@ Two hand-written bodies, chosen by dtype (``gemm_body``): bf16 runs the
 tensor-core body (``wgmma`` products fed by TMA), f32 the CUDA-core body
 (the tensor cores take f32 only as TF32, which the port does not use).
 ``packed_gemm_cuda.launches_by_body`` counts each; ``launches`` is their
-sum. The bf16 body reads its operands through TMA tensor maps, which need
-a 16-byte aligned base and strides of multiples of 16 bytes; ``wgmma_layout``
-decides, from shapes, strides and base alignment alone, how each operand is
-read, and an operand TMA cannot describe is copied into a contiguous buffer
-whose contiguous axis is zero-padded to a multiple of 8
+sum. The f32 body loads float4s along an operand's contiguous axis where
+its base and other strides allow and scalars elsewhere (the kernel's entry
+decides, per operand, from the strides and base it is given). The bf16 body
+reads its operands through TMA tensor maps, which need a 16-byte aligned
+base and strides of multiples of 16 bytes; ``wgmma_layout`` decides, from
+shapes, strides and base alignment alone, how each operand is read, and an
+operand TMA cannot describe is copied into a contiguous buffer whose
+contiguous axis is zero-padded to a multiple of 8
 (``packed_gemm_cuda.padded_copies`` counts the copies).
 """
 from __future__ import annotations

@@ -11,6 +11,7 @@ bf16 once, so they may land one bf16 ulp apart). Masks are exact: active
 lanes ``torch.equal`` to the unmasked call, inactive lanes exact zeros.
 """
 import ctypes
+import re
 import types
 
 import jax.numpy as jnp
@@ -394,3 +395,141 @@ def test_padded_copy_round_trip(J, M, K, N):
         got = pg.packed_gemm_plain(xp, w_rows)[..., :N]
         np.testing.assert_allclose(_np(got), _np(pg.packed_gemm_plain(x, w)),
                                    **TOL[str(dtype).split(".")[1]])
+
+
+# ---------------------------------------------------------------------------
+# B1's f32 body: operand layouts; B2/B5: the row routine per d and dtype
+# ---------------------------------------------------------------------------
+
+def _view(case, seed):
+    """x (J,M,K) and w (J,K,N) in one of the layouts the f32 body reads
+    differently (K-major or M-/N-major, float4 or scalar loads), filled
+    from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    if case == "contiguous":
+        return r(4, 64, 64), r(4, 64, 64)
+    if case == "x_transposed":                  # the gradient GEMM's x^T
+        return r(4, 64, 64).transpose(1, 2), r(4, 64, 64)
+    if case == "w_transposed":
+        return r(4, 64, 64), r(4, 64, 64).transpose(1, 2)
+    if case == "both_transposed":
+        return r(3, 40, 24).transpose(1, 2), r(3, 16, 40).transpose(1, 2)
+    if case == "K70_N30":                       # rows of 70 and 30 floats
+        return r(3, 50, 70), r(3, 70, 30)
+    if case == "K32_N16":                       # tests/test_kernels.py:135
+        return r(2, 128, 32), r(2, 32, 16)
+    if case == "unaligned_offset":
+        x, w = _unaligned((4, 64, 64), torch.float32), _unaligned(
+            (4, 64, 64), torch.float32)
+        return x.copy_(r(4, 64, 64)), w.copy_(r(4, 64, 64))
+    return r(4, 64, 128)[..., ::2], r(4, 64, 128)[..., ::2]   # strided
+
+
+@pytest.mark.parametrize("case", [
+    "contiguous", "x_transposed", "w_transposed", "both_transposed",
+    "K70_N30", "K32_N16", "unaligned_offset", "strided_rows"])
+def test_packed_matmul_operand_layouts(case):
+    """``ops.packed_matmul`` on views in every layout the f32 body tells
+    apart, without copies, against the Pallas kernel on contiguous
+    copies."""
+    x, w = _view(case, len(case))
+    expect = j_packed_gemm(jnp.asarray(x.contiguous().numpy()),
+                           jnp.asarray(w.contiguous().numpy()), block_m=32,
+                           block_n=32, block_k=32, interpret=True)
+    out = ops.packed_matmul(x, w)
+    assert out.shape == (x.shape[0], x.shape[1], w.shape[2])
+    np.testing.assert_allclose(_np(out), _np(expect), **TOL["float32"])
+
+
+def test_packed_matmul_length_one_axes_with_odd_strides():
+    """One lane, or one row, is never stepped over: operands whose
+    length-1 axes carry odd strides give the reference's result."""
+    g = torch.Generator().manual_seed(7)
+    buf = torch.randn(4096, generator=g)
+    for x, w in ((buf.as_strided((1, 16, 16), (3, 16, 1)),
+                  buf[1000:].as_strided((1, 16, 8), (5, 8, 1))),
+                 (buf.as_strided((2, 1, 16), (16, 5, 1)),
+                  buf[2000:].as_strided((2, 16, 8), (128, 8, 1)))):
+        expect = j_packed_gemm(jnp.asarray(x.contiguous().numpy()),
+                               jnp.asarray(w.contiguous().numpy()),
+                               block_m=16, block_n=16, block_k=16,
+                               interpret=True)
+        np.testing.assert_allclose(_np(ops.packed_matmul(x, w)),
+                                   _np(expect), **TOL["float32"])
+
+
+def test_simt_modes_match_the_kernel():
+    """The f32 entry point decides each operand's read mode itself, from
+    the strides and base it is given, and takes as many arguments as its
+    binding gives."""
+    src = (_build.CSRC / "packed_gemm.cu").read_text()
+    assert "constexpr int K_FAST = 1;" in src
+    assert "constexpr int VEC4 = 2;" in src
+    assert "p.x_mode = simt::operand_mode(p.x, J, M, K," in src
+    assert "p.w_mode = simt::operand_mode(p.w, J, N, K," in src
+    sig = src[src.index('extern "C" int repro_packed_gemm('):]
+    sig = sig[:sig.index(")")]
+    assert sig.count(",") + 1 == 4 + 4 + 6 + 1
+
+
+# every d and dtype that chip_smoke's [kernel] phase and the reference tests
+# use, odd d, and the cut-over to the two-read routine
+@pytest.mark.parametrize("d,dtype,want", [
+    (32, "float32", 1), (32, "bfloat16", 1),
+    (48, "float32", 1), (100, "float32", 1), (100, "bfloat16", 1),
+    (128, "float32", 1), (128, "bfloat16", 1),
+    (130, "float32", 2), (130, "bfloat16", 1),
+    (256, "float32", 2), (256, "bfloat16", 1),
+    (1000, "bfloat16", 4),
+    (1024, "float32", 8), (1025, "float32", 0),
+    (2047, "bfloat16", 8), (2048, "bfloat16", 8), (2049, "bfloat16", 0),
+    (2048, "float32", 0), (4096, "float32", 0), (4096, "bfloat16", 0),
+])
+def test_row_vectors(d, dtype, want):
+    """The register routine's vectors per lane: the least power of two
+    whose 32 lanes of 16-byte vectors cover the row, up to 8; 0 (two
+    reads) past that."""
+    dt = getattr(torch, dtype)
+    got = rn.row_vectors(d, dt)
+    assert got == want
+    per_vector = 16 // dt.itemsize
+    if got:
+        assert 32 * per_vector * got >= d > 32 * per_vector * got // 2 \
+            or got == 1
+    else:
+        assert d > 32 * per_vector * rn.MAX_ROW_VECTORS
+
+
+def test_row_vectors_are_instantiated():
+    """Every count ``row_vectors`` can give has a case in the kernel's
+    dispatch, and the two entry points take the count."""
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    cases = {int(c) for c in re.findall(r"case (\d+): err = launch<T, \1>",
+                                         src)}
+    counts = {rn.row_vectors(d, dt) for d in range(1, 9000, 7)
+              for dt in (torch.float32, torch.bfloat16)}
+    assert counts == cases == {0, 1, 2, 4, 8}
+    for name, n_args in (("repro_fused_rmsnorm", 9),
+                         ("repro_packed_rmsnorm", 11)):
+        sig = src[src.index(f'extern "C" int {name}('):]
+        assert sig[:sig.index(")")].count(",") + 1 == n_args, name
+
+
+def test_kernel_resources_reads_ptxas_output():
+    """chip_smoke's [build] lines: registers and spills per entry function
+    of an ``nvcc -Xptxas -v`` log."""
+    from chip_smoke import kernel_resources
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1av\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 151 registers, used 1 barriers, 25600 bytes\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 36 registers, used 0 barriers\n")
+    rows = kernel_resources(log)
+    assert [r[1:] for r in rows] == [(151, "8", "4"), (36, "0", "0")]
+    assert rows[0][0] in ("_Z1av", "a()")
