@@ -9,23 +9,32 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    (one ``nvcc`` per source, all at once), print each kernel's registers
    and spills (``ptxas -v``), count the tensor-core (HGMMA),
    TMA (UTMALDG) and mbarrier (SYNCS) instructions in the SASS of the B1
-   and B3 libraries, print the card's name and power limit, turn TF32 off;
+   and B3 libraries and the tensor-core (HMMA), cp.async (LDGSTS) and
+   ldmatrix (LDSM) instructions in B4's, print the card's name and power
+   limit, turn TF32 off;
 2. [kernel] each kernel against its plain PyTorch version on the card:
    flash attention (B3) at the serving path's shape and at GQA / window /
-   f32 / ragged / lane-masked cases; the packed GEMM (B1) at the reference
-   test shapes, strided and lane-masked, timed in both of the kernel-mode
+   f32 / ragged / lane-masked cases, at head dims 16 (the reduced configs,
+   f32) and 112 (zamba2-7b, bf16) too, and ``torch.func.vmap(grad)`` of a
+   loss through ``ops.flash_attention`` (one B3 launch per vmapped call)
+   against the same through ``sdpa_chunked``; the packed GEMM (B1) at the
+   reference test shapes, strided and lane-masked, timed in both of the kernel-mode
    step's orientations (x, and the gradient GEMM's x^T view); the RMSNorm
    pair (B2 lane-batched, B5 rows), masked, and B2's lanes against B5 bit
    for bit, on rows held in registers and on longer rows read twice; the
    SSD scan (B4) at a reference test shape, ragged chunks, b = 4 and the
    serving prefill's shape, in f32 and bf16, through the model's strided
-   views and lane-masked; each timed beside its bound and, where one
+   views and lane-masked, its three CUDA kernels timed apart; a Mamba2
+   block's gradient on the card (through the chunked scan, no B4 launch)
+   against the CPU's; each timed beside its bound and, where one
    exists, a PyTorch library call (CUDA events and profiler device time
    for both);
    B1 and B3 run their tensor-core (wgmma) bodies on bf16 and their
    CUDA-core (simt) bodies on f32;
-3. [small] a narrow f32 model served on the card (kernel path) and on the
-   CPU (chunked path) from the same parameters must agree;
+3. [small] narrow f32 models served on the card (kernel path) and on the
+   CPU (chunked path) from the same parameters must agree: a head-dim-64
+   variant of the reduced StableLM-2 and the stock reduced config (head
+   dim 16);
 4. [serve] the serving path: ``BatchServer`` serving 8 requests on
    full-width StableLM-2 1.6B (random weights from a seed), with every
    kernel's launch count read around that run (B3's by body: all on the
@@ -85,6 +94,12 @@ LOGIT_ATOL_BF16 = 0.25
 # margin of 1.5x over that reading and stays below the top-2 gap
 SSM_LOGIT_ATOL_BF16 = 0.1
 SMALL_LOGIT_ATOL_F32 = 1e-4
+# gradients through the kernel path against the chunked path (f32): both
+# backwards recompute through plain PyTorch, and the loss is quadratic in
+# the output, so the kernel's forward enters them; sums over S terms in
+# another order, the reference's own gradient bound (tests/test_ssm_
+# attention.py, tests/test_torch_flash_attention.py GRAD_TOL)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # packed GEMM and RMSNorm vs their plain versions. f32: F32_TOL (two
 # summation orders). bf16: both compute in f32 and round the output once,
 # so they may land one bf16 ulp apart; an ulp is at most 2^-7 of the value,
@@ -250,25 +265,35 @@ def _cuobjdump() -> str:
     raise AssertionError("cuobjdump not found: the SASS check needs it")
 
 
-# the libraries whose bf16 bodies run on the tensor cores, fed by TMA
-TENSOR_CORE_LIBS = ("packed_gemm", "flash_attention")
-SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+# the libraries that run on the tensor cores, with the SASS instructions
+# counted in each and those it must hold: B1's and B3's bf16 bodies use
+# wgmma (HGMMA) fed by TMA (UTMALDG) behind mbarriers (SYNCS); B4 uses
+# mma.sync (HMMA) on ldmatrix (LDSM) fragments of tiles copied by cp.async
+# (LDGSTS)
+TENSOR_CORE_LIBS = {"packed_gemm": (("HGMMA", "UTMALDG", "SYNCS"),
+                                    ("HGMMA", "UTMALDG")),
+                    "flash_attention": (("HGMMA", "UTMALDG", "SYNCS"),
+                                        ("HGMMA", "UTMALDG")),
+                    "ssd_scan": (("HMMA", "LDGSTS", "LDSM"),
+                                 ("HMMA", "LDGSTS"))}
 
 
 def check_sass() -> None:
-    """Counts wgmma (HGMMA), TMA load (UTMALDG) and mbarrier (SYNCS)
-    instructions in the compiled code of B1 and B3; fails if either library
-    has no HGMMA or no UTMALDG."""
+    """Counts the tensor-core and copy instructions of each library in
+    ``TENSOR_CORE_LIBS`` in its compiled code; fails if a library lacks one
+    it must hold."""
     from repro_torch.kernels import _build
     tool = _cuobjdump()
-    for name in TENSOR_CORE_LIBS:
+    for name, (ops, needed) in TENSOR_CORE_LIBS.items():
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(name))], check=True,
             capture_output=True, text=True, timeout=120).stdout
-        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
         log(f"[build] {name} SASS: {counts}")
-        if not (counts["HGMMA"] and counts["UTMALDG"]):
-            raise AssertionError(f"{name}: no HGMMA or no UTMALDG in its SASS")
+        missing = [op for op in needed if not counts[op]]
+        if missing:
+            raise AssertionError(f"{name}: no {', '.join(missing)} in its "
+                                 f"SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -300,10 +325,14 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
+    """Every count to 0: launches, launches by body, and B4's calls with
+    scalar row reads."""
     for fn in kernel_wrappers().values():
         fn.launches = 0
         for body in getattr(fn, "launches_by_body", {}):
             fn.launches_by_body[body] = 0
+        if hasattr(fn, "scalar_reads"):
+            fn.scalar_reads = 0
 
 
 def read_launches() -> dict:
@@ -353,6 +382,14 @@ def check_flash_attention() -> dict:
         ("cross_ragged", 1, 100, 333, 8, 8, 64, bf16, False, 0),
         ("cross_causal", 2, 130, 70, 4, 2, 128, bf16, True, 0),
         ("bidir_window", 1, 200, 200, 4, 2, 64, bf16, False, 48),
+        # head dim 16 (every reduced config, f32) and 112 (zamba2-7b: 32
+        # heads, bf16), the box's columns past D zero-filled in bf16
+        ("f32_d16_causal", 2, 300, 300, 4, 2, 16, f32, True, 0),
+        ("f32_d16_window", 1, 200, 200, 4, 4, 16, f32, True, 48),
+        ("f32_d16_bidir", 1, 130, 70, 4, 2, 16, f32, False, 0),
+        ("d112_causal", 1, 1024, 1024, 32, 32, 112, bf16, True, 0),
+        ("d112_window", 1, 777, 777, 32, 32, 112, bf16, True, 256),
+        ("d16_causal", 2, 300, 300, 4, 2, 16, bf16, True, 0),
     ]
     errs = {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window in cases:
@@ -375,7 +412,8 @@ def check_flash_attention() -> dict:
 
     # lane mask: inactive lanes exact zeros, active lanes bit-identical
     active = torch.tensor([1, 0, 1, 0], device="cuda")
-    for dt, D in ((bf16, 64), (bf16, 128), (f32, 128)):
+    for dt, D in ((bf16, 64), (bf16, 128), (f32, 128), (f32, 16),
+                  (bf16, 112)):
         q, k, v = _qkv(gen, 4, 256, 256, 8, 4, D, dt)
         dense = fa.flash_attention_cuda(q, k, v, causal=True)
         masked = fa.flash_attention_cuda(q, k, v, causal=True, active=active)
@@ -389,6 +427,8 @@ def check_flash_attention() -> dict:
                                  "from the unmasked launch")
         log(f"[kernel] flash_attention masked {dt} D={D}: inactive lanes "
             f"exact zeros, active lanes bit-identical")
+
+    check_attention_vmap_grad(gen)
 
     # timing at the serving path's prefill shape
     name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window = cases[0]
@@ -414,6 +454,56 @@ def check_flash_attention() -> dict:
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "library_device_ms": library_dev_ms}
+
+
+def check_attention_vmap_grad(gen) -> None:
+    """``torch.func.vmap(torch.func.grad(loss))`` through
+    ``ops.flash_attention`` on the card, as a lane pool steps 3 lanes of
+    (2, 96, 4, 16) f32 with a shared lane mask, against the same through
+    ``sdpa_chunked``: each vmapped call launches B3 exactly once (the lanes
+    folded into its batch axis), and the gradients agree within GRAD_TOL.
+    The loss is quadratic in the output, so the kernel's forward enters
+    the gradient."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import sdpa_chunked
+    lanes, B, S, Hq, Hkv, D = 3, 2, 96, 4, 2, 16
+    mk = lambda h: torch.randn(lanes, B, S, h, D, generator=gen,
+                               device="cuda")
+    q, k, v, w = mk(Hq), mk(Hkv), mk(Hkv), mk(Hq)
+    active = torch.tensor([1, 0], device="cuda")
+    for causal, window in ((True, 0), (True, 32), (False, 0)):
+        def port(q, k, v, w):
+            out = ops.flash_attention(q, k, v, causal, window, active=active)
+            return (out * out * w).sum()
+
+        def chunked(q, k, v, w):
+            out = ref.mask_lanes(active, sdpa_chunked(
+                q, k, v, causal=causal, window=window))
+            return (out * out * w).sum()
+
+        grads = {}
+        for name, loss in (("kernel", port), ("chunked", chunked)):
+            before = fa.flash_attention_cuda.launches
+            grads[name] = torch.func.vmap(torch.func.grad(
+                loss, argnums=(0, 1, 2)))(q, k, v, w)
+            torch.cuda.synchronize()
+            launched = fa.flash_attention_cuda.launches - before
+            if launched != (1 if name == "kernel" else 0):
+                raise AssertionError(f"vmap(grad) through {name}: {launched} "
+                                     f"B3 launches")
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(grads["kernel"], grads["chunked"])]
+        ok = all(torch.allclose(a, b, **GRAD_TOL) and torch.isfinite(a).all()
+                 for a, b in zip(grads["kernel"], grads["chunked"]))
+        log(f"[kernel] flash_attention vmap(grad) {lanes} lanes of "
+            f"{(B, S, Hq, D)} f32 causal={causal} window={window}: one B3 "
+            f"launch per call, grad max_abs_err vs sdpa_chunked "
+            f"{max(errs):.3g} ({GRAD_TOL})")
+        if not ok:
+            raise AssertionError(f"vmap(grad) through B3 disagrees with "
+                                 f"sdpa_chunked (max err {max(errs)})")
 
 
 def _agree(out, ref) -> tuple:
@@ -689,17 +779,58 @@ def check_rmsnorm() -> list:
     return records
 
 
-def ssd_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
-    """Least time for the SSD scan on these shapes: f32 operations (C·Bᵀ
-    and the intra-chunk product over the causal half of each chunk, j <= i;
-    the inter-chunk and state products in full) at the f32 peak, against
-    x, B, C read and y written in their dtype, dt read and the state
-    written in f32."""
+def ssd_work(b, S, nh, hd, N, Q, itemsize) -> tuple:
+    """(f32 operations, bytes) of the SSD scan on these shapes: C·Bᵀ and
+    the intra-chunk product over the causal half of each chunk (j <= i),
+    the inter-chunk and state products in full; x, B, C read and y written
+    in their dtype, dt read and the state written in f32."""
     nc, tri = S // Q, Q * (Q + 1) // 2
     flops = b * nc * (2 * N * tri + 2 * nh * hd * tri + 4 * Q * N * nh * hd)
     nbytes = ((2 * b * S * nh * hd + 2 * b * S * N) * itemsize
               + 4 * (b * S * nh + nh + b * nh * hd * N))
-    return bound_ms(flops, nbytes, PEAK_FLOPS["torch.float32"])
+    return flops, nbytes
+
+
+def ssd_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
+    """Least time for the SSD scan: its f32 operations at the f32 peak,
+    against its bytes."""
+    return bound_ms(*ssd_work(b, S, nh, hd, N, Q, itemsize),
+                    PEAK_FLOPS["torch.float32"])
+
+
+def ssd_tensor_core_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
+    """Least time for the same work on the route the kernel takes: each
+    f32 product as three exact bf16 products at the bf16 tensor-core
+    peak, against the same bytes."""
+    flops, nbytes = ssd_work(b, S, nh, hd, N, Q, itemsize)
+    return bound_ms(3 * flops, nbytes, PEAK_FLOPS["torch.bfloat16"])
+
+
+def check_ssd_plan(sd, dev: int) -> dict:
+    """The plan the source gives at the serving shape, held to the design:
+    192 CTAs in the chunk and output kernels for 132 SMs, two CTAs per SM
+    in bf16 by the runtime's occupancy (one in f32), and one scratch of the
+    log decays, C·Bᵀ once per chunk (512 KiB) and each chunk's (N, hd) f32
+    state (6.3 MB)."""
+    import torch
+    b, S, nh, hd, N, Q = SSD_SERVE
+    nc = S // Q
+    pl = sd.plan(b, S, nh, hd, N, Q, torch.bfloat16, dev)
+    pl32 = sd.plan(b, S, nh, hd, N, Q, torch.float32, dev)
+    want = 4 * b * nc * (nh * Q + Q * Q + nh * N * hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[kernel] ssd_scan plan {SSD_SERVE}: {b * nc * nh} CTAs per kernel "
+        f"on {sms} SMs, scratch {4 * pl.scratch_floats} bytes, shared "
+        f"memory {pl.smem} bytes (at most {pl.max_smem}), CTAs per SM "
+        f"{pl.ctas_per_sm} bf16, {pl32.ctas_per_sm} f32 ({pl32.smem} bytes)")
+    if 4 * pl.scratch_floats != want or b * nc * nh < sms \
+            or set(pl.ctas_per_sm.values()) != {2} \
+            or min(pl32.ctas_per_sm.values()) < 1:
+        raise AssertionError(f"ssd_scan plan {pl} / {pl32} misses the "
+                             f"design ({want} scratch bytes, two CTAs per "
+                             f"SM)")
+    return {"smem": pl.smem, "ctas_per_sm": pl.ctas_per_sm,
+            "scratch_bytes": 4 * pl.scratch_floats}
 
 
 def _ssd_inputs(gen, b, S, nh, hd, N, dtype, model_like: bool):
@@ -747,6 +878,7 @@ def check_ssd_scan() -> dict:
     from repro_torch.kernels import ssd_scan as sd
     gen = torch.Generator(device="cuda").manual_seed(4)
     f32, bf16 = torch.float32, torch.bfloat16
+    plan = check_ssd_plan(sd, torch.cuda.current_device())
     errs = {}
     # (b, S, nh, hd, N, chunk, model-like inputs)
     cases = [(2, 128, 4, 16, 32, 32, False), (2, 96, 3, 16, 64, 32, False),
@@ -806,6 +938,23 @@ def check_ssd_scan() -> dict:
         f"{same}")
     if not same:
         raise AssertionError("ssd_scan: strided views differ")
+    # rows one element off a 16-byte boundary: the C entry reads them one
+    # element at a time and reports it; the same tiles, so the same bits
+    flat = torch.empty(xBC.numel() + 1, dtype=bf16, device="cuda")
+    flat[1:] = xBC.reshape(-1)
+    xBC1 = flat[1:].view(xBC.shape)
+    odd = (xBC1[..., :nh * hd].reshape(b, S, nh, hd), dt, A,
+           xBC1[..., nh * hd:nh * hd + N], xBC1[..., nh * hd + N:])
+    before = sd.ssd_scan_cuda.scalar_reads
+    got = sd.ssd_scan_cuda(*odd)
+    scalar = sd.ssd_scan_cuda.scalar_reads - before
+    same = all(torch.equal(g, w) for g, w in zip(got, sd.ssd_scan_cuda(
+        *(t.contiguous() for t in odd))))
+    log(f"[kernel] ssd_scan rows off a 16-byte boundary: {scalar} call with "
+        f"scalar row reads, equal to contiguous inputs bit for bit {same}")
+    if scalar != 1 or not same:
+        raise AssertionError(f"ssd_scan: misaligned rows read the scalar "
+                             f"path {scalar} times, bits equal {same}")
 
     # lane mask: y and the state zero on inactive lanes, exact on active
     args = _ssd_inputs(gen, 4, 256, 8, 64, 128, bf16, True)
@@ -823,17 +972,116 @@ def check_ssd_scan() -> dict:
     dev_ms = device_ms(lambda: sd.ssd_scan_cuda(*args))
     plain_ms = cuda_time_ms(lambda: sd.ssd_scan_plain(*args), iters=5)
     b_ms, b_by = ssd_bound_ms(b, S, nh, hd, N, Q, 2)
+    tc_ms, tc_by = ssd_tensor_core_bound_ms(b, S, nh, hd, N, Q, 2)
+    by_kernel, per_call = kernel_profile(lambda: sd.ssd_scan_cuda(*args), 10)
     log(f"[kernel] ssd_scan {SSD_SERVE[:4]} N={N} chunk={Q} bf16: kernel "
         f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, no "
         f"library call (no single PyTorch call computes SSD), bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{b_ms:.4f} ms ({b_by}, f32 rate), on the tensor cores "
+        f"{tc_ms:.4f} ms ({tc_by}, three bf16 products per f32 product)")
+    kernels_per_call = sum(per_call.values())
+    log(f"[kernel] ssd_scan CUDA kernels per call in the trace: "
+        f"{kernels_per_call:g} {per_call}, device us each: {by_kernel}")
+    if set(per_call.values()) != {1}:
+        raise AssertionError(f"ssd_scan: each call should launch each of "
+                             f"its kernels once, the trace has {per_call}")
+    # four sequences at once: 768 CTAs a kernel instead of 192, so the
+    # time shows whether one call is set by a wave's latency or by the
+    # SMs' throughput
+    args4 = _ssd_inputs(gen, 4 * b, S, nh, hd, N, bf16, True)
+    dev4_ms = device_ms(lambda: sd.ssd_scan_cuda(*args4))
+    log(f"[kernel] ssd_scan ({4 * b}, {S}, {nh}, {hd}) N={N} chunk={Q} "
+        f"bf16: device {dev4_ms:.4f} ms, {dev4_ms / dev_ms:.2f}x the time "
+        f"of one sequence for 4x the work")
+    args32 = _ssd_inputs(gen, b, S, nh, hd, N, f32, True)
+    log(f"[kernel] ssd_scan {SSD_SERVE[:4]} N={N} chunk={Q} f32 (operands "
+        f"split in three bf16 pieces): device "
+        f"{device_ms(lambda: sd.ssd_scan_cuda(*args32)):.4f} ms")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:73",
-            "launches": None,
+            "launches": None, "body": "bf16",
+            "kernels_per_call": kernels_per_call,
+            "device_us_by_kernel": by_kernel,
+            "tensor_core_bound_ms": tc_ms, "plan": plan,
+            "device_ms_4_sequences": dev4_ms,
             "max_abs_err": errs[SSD_SERVE + ("torch.bfloat16",)], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "library_device_ms": None}
+
+
+def kernel_name(event) -> str:
+    """A device event's kernel name without return type, namespace and
+    template or parameter lists."""
+    name = re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", event.name)
+    return re.split(r"[<(]", name)[0]
+
+
+def kernel_profile(fn, iters: int) -> tuple:
+    """Per call of ``fn``, from a torch.profiler trace of ``iters`` calls:
+    the device microseconds of each CUDA kernel it launches and how many
+    times it launches each, by the kernel's short name."""
+    fn()
+    us: dict = {}
+    n: dict = {}
+    for e in device_events(fn, iters):
+        name = kernel_name(e)
+        us[name] = us.get(name, 0.0) + e.time_range.elapsed_us() / iters
+        n[name] = n.get(name, 0) + 1 / iters
+    return ({k: round(v, 2) for k, v in us.items()},
+            {k: round(v, 3) for k, v in n.items()})
+
+
+def check_mamba2_gradient() -> None:
+    """A Mamba2 block's gradient on the card with the default impl: autograd
+    needs the scan's result, so the block takes the chunked scan (B4 has no
+    backward and is not launched), and the gradients of x and of every
+    parameter agree with the CPU's within GRAD_TOL; the same block without
+    grad launches B4 once."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as sd
+    from repro_torch.models import ssm
+    cfg = configs.get("mamba2-130m").reduced()
+    params = ssm.init_mamba2(torch.Generator().manual_seed(3), cfg.d_model,
+                             cfg.ssm, torch.float32)
+    rng = np.random.default_rng(5)
+    S = 2 * cfg.ssm.chunk_size
+    x = torch.from_numpy((rng.standard_normal((2, S, cfg.d_model)) * 0.5)
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, S, cfg.d_model))
+                         .astype(np.float32))
+
+    def loss(params, x, w):
+        y, state = ssm.mamba2_block(params, x, cfg.d_model, cfg.ssm)
+        return (y * y * w).sum() + state.square().sum()
+
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        before = sd.ssd_scan_cuda.launches
+        grads[dev] = torch.func.grad(loss, argnums=(0, 1))(
+            _tree_to(params, dev), x.to(dev), w.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            if sd.ssd_scan_cuda.launches != before:
+                raise AssertionError("mamba2 gradient launched B4")
+    pairs = [(grads["cuda"][1], grads["cpu"][1])] + [
+        (grads["cuda"][0][k], grads["cpu"][0][k]) for k in grads["cpu"][0]]
+    err = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+    ok = all(torch.allclose(a.cpu(), b, **GRAD_TOL) for a, b in pairs)
+    before = sd.ssd_scan_cuda.launches
+    with torch.no_grad():
+        ssm.mamba2_block(_tree_to(params, "cuda"), x.cuda(), cfg.d_model,
+                         cfg.ssm)
+    torch.cuda.synchronize()
+    served = sd.ssd_scan_cuda.launches - before
+    log(f"[kernel] mamba2 block gradient on the card ({cfg.name}, x "
+        f"{tuple(x.shape)}, chunked scan under grad, no B4 launch) vs the "
+        f"CPU: max_abs_err {err:.3g} over x and {len(pairs) - 1} parameters "
+        f"({GRAD_TOL}); without grad the block launched B4 {served} time(s)")
+    if not ok or served != 1:
+        raise AssertionError(f"mamba2 gradient on the card: err {err}, B4 "
+                             f"launches without grad {served}")
 
 
 # ---------------------------------------------------------------------------
@@ -850,38 +1098,49 @@ def make_requests(seed: int, n: int, prompt_range, new_range, vocab: int):
 
 
 def check_small_reference() -> None:
-    """A narrow f32 model (head_dim 64, so the kernel takes it) served on the
-    card through the kernel and on the CPU through the chunked path, from
-    the same parameters: prefill logits agree and tokens match."""
+    """Narrow f32 models served on the card through the kernel and on the
+    CPU through the chunked path, from the same parameters: prefill logits
+    agree and tokens match. Two configs: the reduced StableLM-2 at head dim
+    64 and the stock reduced config (head dim 16, as every ``reduced()``
+    config), both through B3's f32 body."""
     import torch
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.serve import BatchServer
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(configs.get("stablelm-1.6b").reduced(),
-                              d_model=256, num_heads=4, num_kv_heads=2,
-                              head_dim=64)
-    cpu_model = Model(cfg, device="cpu")
-    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
-    gpu_model = Model(cfg, device="cuda")
-    gpu_params = _tree_to(cpu_params, "cuda")
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 150)))
-    lc, _ = cpu_model.prefill(cpu_params, {"tokens": toks}, max_len=192)
-    lg, _ = gpu_model.prefill(gpu_params, {"tokens": toks.cuda()},
-                              max_len=192)
-    err = (lg.cpu() - lc).abs().max().item()
-    log(f"[small] f32 prefill logits card (kernel) vs cpu (chunked): "
-        f"max_abs_err {err:.3g} (atol {SMALL_LOGIT_ATOL_F32})")
-    if not err <= SMALL_LOGIT_ATOL_F32:
-        raise AssertionError(f"small reference: logits differ by {err}")
-    outs = []
-    for model, params in ((cpu_model, cpu_params), (gpu_model, gpu_params)):
-        reqs = make_requests(2, 5, (40, 120), (2, 9), cfg.vocab_size)
-        outs.append(BatchServer(model, params, batch_lanes=2,
-                                max_len=160).run(reqs))
-    if outs[0] != outs[1]:
-        raise AssertionError("small reference: card and cpu tokens differ")
-    log("[small] served 5 requests: card tokens == cpu tokens")
+    reduced = configs.get("stablelm-1.6b").reduced()
+    variants = (("head_dim 64", dataclasses.replace(
+        reduced, d_model=256, num_heads=4, num_kv_heads=2, head_dim=64)),
+        ("stock reduced, head_dim 16", reduced))
+    for label, cfg in variants:
+        cpu_model = Model(cfg, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+        gpu_model = Model(cfg, device="cuda")
+        gpu_params = _tree_to(cpu_params, "cuda")
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 150)))
+        before = fa.flash_attention_cuda.launches_by_body["simt"]
+        lc, _ = cpu_model.prefill(cpu_params, {"tokens": toks}, max_len=192)
+        lg, _ = gpu_model.prefill(gpu_params, {"tokens": toks.cuda()},
+                                  max_len=192)
+        launched = fa.flash_attention_cuda.launches_by_body["simt"] - before
+        err = (lg.cpu() - lc).abs().max().item()
+        log(f"[small] {label}: f32 prefill logits card (kernel, {launched} "
+            f"B3 launches on the simt body) vs cpu (chunked): max_abs_err "
+            f"{err:.3g} (atol {SMALL_LOGIT_ATOL_F32})")
+        if not err <= SMALL_LOGIT_ATOL_F32 or launched != cfg.num_layers:
+            raise AssertionError(f"small reference {label}: logits differ "
+                                 f"by {err}, {launched} B3 launches")
+        outs = []
+        for model, params in ((cpu_model, cpu_params),
+                              (gpu_model, gpu_params)):
+            reqs = make_requests(2, 5, (40, 120), (2, 9), cfg.vocab_size)
+            outs.append(BatchServer(model, params, batch_lanes=2,
+                                    max_len=160).run(reqs))
+        if outs[0] != outs[1]:
+            raise AssertionError(f"small reference {label}: card and cpu "
+                                 f"tokens differ")
+        log(f"[small] {label}: served 5 requests: card tokens == cpu tokens")
 
 
 def serve_full(record: dict):
@@ -1019,7 +1278,10 @@ def serve_ssm(record: dict):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    from repro_torch.kernels import ssd_scan as sd
     record["launches"] = launches["ssd_scan"]
+    record["launches_by_body"] = dict(sd.ssd_scan_cuda.launches_by_body)
+    record["scalar_reads"] = sd.ssd_scan_cuda.scalar_reads
     st = srv.stats
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_tokens = st.lane_steps - st.prefills
@@ -1028,7 +1290,9 @@ def serve_ssm(record: dict):
         f"-{s_pad} tokens, max_new {min(r.max_new for r in reqs)}-"
         f"{max(r.max_new for r in reqs)}: wall {wall:.3f} s, prefills "
         f"{st.prefills}, global_steps {st.global_steps}, lane_steps "
-        f"{st.lane_steps}, lane_slots {st.lane_slots}, launches {launches}")
+        f"{st.lane_steps}, lane_slots {st.lane_slots}, launches {launches}; "
+        f"ssd_scan by body {record['launches_by_body']}, scalar row reads "
+        f"{record['scalar_reads']}")
     log(f"[serve-ssm] prefill {1e3 * st.prefill_s / st.prefills:.2f} "
         f"ms/request (S_pad {s_pad}), decode "
         f"{decode_tokens / st.decode_s:.1f} tokens/s over {st.global_steps} "
@@ -1041,6 +1305,38 @@ def serve_ssm(record: dict):
             or launches["ssd_scan"] == 0:
         raise AssertionError(f"ssd_scan launches {launches['ssd_scan']} != "
                              f"prefills {st.prefills} x {N_LAYERS_FULL}")
+    if record["launches_by_body"]["bf16"] != launches["ssd_scan"] \
+            or record["scalar_reads"]:
+        raise AssertionError(f"ssd_scan: bodies "
+                             f"{record['launches_by_body']} for "
+                             f"{launches['ssd_scan']} calls, "
+                             f"{record['scalar_reads']} with scalar row "
+                             f"reads")
+    # the same run again under torch.profiler, every count set to 0 just
+    # before it: B4's CUDA kernels counted in the trace, each once a call
+    traced = {}
+
+    def run_traced():
+        fresh = ssm_requests(cfg.vocab_size)     # the server fills r.out
+        reset_launches()
+        BatchServer(model, params, batch_lanes=4, max_len=2048).run(fresh)
+        traced.update(read_launches())
+
+    by_name: dict = {}
+    for e in device_events(run_traced):
+        name = kernel_name(e)
+        if name.startswith("ssd_"):
+            by_name[name] = by_name.get(name, 0) + 1
+    calls = traced["ssd_scan"]
+    record["kernels"] = sum(by_name.values())
+    record["kernels_by_name"] = by_name
+    log(f"[serve-ssm] traced run: {calls} ssd_scan calls, CUDA kernels in "
+        f"the trace {record['kernels']} {by_name}")
+    if calls != launches["ssd_scan"] or not by_name \
+            or set(by_name.values()) != {calls}:
+        raise AssertionError(f"ssd_scan: the traced run made {calls} calls "
+                             f"(untraced {launches['ssd_scan']}) and "
+                             f"launched {by_name}")
     for r in reqs:
         toks = out[r.id]
         if len(toks) != r.max_new or not all(0 <= t < cfg.padded_vocab
@@ -1492,6 +1788,7 @@ def main() -> int:
     card = setup()
     records = [check_flash_attention(), check_packed_gemm(), *check_rmsnorm(),
                check_ssd_scan()]
+    check_mamba2_gradient()
     check_small_reference()
     profile_serving(*serve_full(records[0]))
     profile_serving(*serve_ssm(records[4]))

@@ -47,16 +47,23 @@
 // takes longer than its two products on the tensor cores, and the two
 // consumer warpgroups are not scheduled to alternate; issuing the next
 // tile's S before this tile's softmax gained nothing on the card.
-// The finish divides by max(l, 1e-30) and stores bf16. Head dims 64 and
-// 128 (a row of D = 128 is two 64-column boxes, one per 128-byte swizzle
-// span). TMA needs 16-byte aligned bases and strides of multiples of 16
-// bytes; the Python wrapper raises on a layout that breaks that.
+// The finish divides by max(l, 1e-30) and stores bf16. Head dims: every
+// multiple of 16 up to 128. The body is instantiated at DP = 64 and 128 (a
+// row of 128 is two 64-column boxes, one per 128-byte swizzle span); a
+// smaller D runs the next DP up, its tensor maps over the true D, so TMA
+// fills the box's columns D..DP-1 with zeros: Q K^T over them adds exact
+// zeros, P V gives zero columns there, and only the D true columns are
+// stored. The scale is 1/sqrt(D) of the true D (the wrapper's). TMA needs
+// 16-byte aligned bases and strides of multiples of 16 bytes; the Python
+// wrapper raises on a layout that breaks that.
 //
 // simt body (f32). One CTA of 256 threads per (64-row q tile, head, batch),
 // 64-row KV tiles and a 64x64 P tile in shared memory, f32 FMAs; thread t
 // owns rows 4*(t/16)..+3 of the tile and columns t%16 + 16*j, so a row's 16
 // owners sit in one half-warp and its max/sum reduce with shuffles. Its
-// scale is applied to q on load. Grid: (ceil(Sq/64), Hq, B).
+// scale is applied to q on load. Grid: (ceil(Sq/64), Hq, B). Instantiated
+// for every head dim that is a multiple of 16 up to 128 (D/16 accumulator
+// columns per thread).
 //
 // Layout: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), o (B,Sq,Hq,D), read through their
 // element strides (last dim contiguous).
@@ -286,6 +293,7 @@ struct Params {
   void* o;
   const int* active;  // (B,) or nullptr
   int B, Sq, Sk, Hq, Hkv;
+  int D;  // the true head dim, at most the instantiation's
   long long o_sb, o_ss, o_sh;
   int causal, window;
   float scale_log2;  // 1/sqrt(D) * log2(e)
@@ -312,8 +320,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   if (p.active != nullptr && p.active[b] == 0) {
-    for (int idx = threadIdx.x; idx < BQ * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D;
+    for (int idx = threadIdx.x; idx < BQ * p.D; idx += THREADS) {
+      const int r = idx / p.D, c = idx % p.D;
       if (q0 + r < p.Sq)
         o[(long long)(q0 + r) * p.o_ss + c] = __float2bfloat16(0.f);
     }
@@ -490,7 +498,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       __nv_bfloat16* dst = o + (long long)row * p.o_ss + col0;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
+        if (8 * jj < p.D)  // columns past the true D are the box's zeros
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * jj) =
             __floats2bfloat162_rn(acc[4 * jj + 2 * r] / denom,
                                   acc[4 * jj + 2 * r + 1] / denom);
     }
@@ -553,13 +562,22 @@ extern "C" int repro_flash_attention_fwd(
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_simt<64>(p, s);
-  if (D == 128) return launch_simt<128>(p, s);
+  switch (D) {
+    case 16: return launch_simt<16>(p, s);
+    case 32: return launch_simt<32>(p, s);
+    case 48: return launch_simt<48>(p, s);
+    case 64: return launch_simt<64>(p, s);
+    case 80: return launch_simt<80>(p, s);
+    case 96: return launch_simt<96>(p, s);
+    case 112: return launch_simt<112>(p, s);
+    case 128: return launch_simt<128>(p, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // bf16 body. q/k/v strides are in elements, multiples of 8, bases 16-byte
-// aligned (the wrapper checks); o is written through its strides. Returns
+// aligned (the wrapper checks); o is written through its strides. D is a
+// multiple of 16 up to 128; the maps cover the true D, the box 64 columns. Returns
 // 0, a cudaError_t, or the negated CUresult of a refused tensor map.
 extern "C" int repro_flash_attention_fwd_wgmma(
     const void* q, const void* k, const void* v, void* o, const void* active,
@@ -569,6 +587,8 @@ extern "C" int repro_flash_attention_fwd_wgmma(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, float scale_log2, void* stream) {
+  if (D < 16 || D > 128 || D % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   int err = wg::map_qkv(&mq, q, D, Hq, Sq, B, q_sh, q_ss, q_sb, wg::BQ);
   if (err == 0)
@@ -584,12 +604,12 @@ extern "C" int repro_flash_attention_fwd_wgmma(
   p.Sk = Sk;
   p.Hq = Hq;
   p.Hkv = Hkv;
+  p.D = D;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.causal = causal;
   p.window = window;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return wg::launch<64>(mq, mk, mv, p, s);
-  if (D == 128) return wg::launch<128>(mq, mk, mv, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64) return wg::launch<64>(mq, mk, mv, p, s);
+  return wg::launch<128>(mq, mk, mv, p, s);
 }

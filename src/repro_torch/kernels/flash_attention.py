@@ -17,7 +17,8 @@ the call without it.
 Two hand-written bodies, chosen by dtype and head dim (``attention_body``):
 bf16 runs the tensor-core body (``wgmma`` products, Q/K/V tiles fed by
 TMA), f32 the CUDA-core body (the tensor cores take f32 only as TF32, which
-the port does not use); head dims 64 and 128 only.
+the port does not use); each takes every head dim that is a multiple of 16
+from 16 to 128 (the reduced configs' 16, zamba2-7b's 112).
 ``flash_attention_cuda.launches_by_body`` counts each; ``launches`` is their
 sum. The bf16 body reads q, k, v through TMA tensor maps over their own
 strides: a base or a stride that is not a multiple of 16 bytes raises.
@@ -35,21 +36,22 @@ from repro_torch.kernels.ref import mask_lanes
 NEG_INF = -1e30
 
 _BODY = {torch.float32: "simt", torch.bfloat16: "wgmma"}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = tuple(range(16, 129, 16))
 _LOG2E = 1.4426950408889634
 
 
 def attention_body(dtype, head_dim: int) -> str:
     """The hand-written body that takes ``dtype`` and ``head_dim``: "wgmma"
     (tensor cores) for bfloat16, "simt" (CUDA cores) for float32; raises for
-    any other dtype or a head dim other than 64 or 128."""
+    any other dtype, or a head dim that is not a multiple of 16 from 16 to
+    128."""
     body = _BODY.get(dtype)
     if body is None:
         raise ValueError(f"flash_attention_cuda: no kernel body for dtype "
                          f"{dtype}; bodies take {tuple(_BODY)}")
     if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {head_dim} not in "
-                         f"{_HEAD_DIMS}")
+        raise ValueError(f"flash_attention_cuda: head dim {head_dim} is not "
+                         f"a multiple of 16 from 16 to 128")
     return body
 
 

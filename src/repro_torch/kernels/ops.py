@@ -4,7 +4,9 @@ The device of the tensors picks the path: a CPU tensor takes the kernel's
 plain PyTorch version, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 recomputes through ``models.attention.sdpa_chunked``, as the reference's
-custom_vjp does (there is no backward kernel in either package). ``ssd``
+custom_vjp does (there is no backward kernel in either package); it runs
+under ``torch.func.grad`` and ``torch.func.vmap``, and a vmapped call makes
+one kernel launch with the vmapped axis folded into the batch axis. ``ssd``
 has no backward in either package.
 
 Lane masking: every packed entry point here accepts a per-lane ``active``
@@ -35,24 +37,54 @@ def _lane_predicate(active, like):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with a recompute backward, in the form
+    ``torch.func`` takes: ``forward`` without ``ctx``, ``setup_context``,
+    and a ``vmap`` rule, so that a lane pool can step lanes under
+    ``torch.func.vmap(torch.func.grad(...))`` as the reference's custom_vjp
+    runs under ``jax.vmap(jax.grad(...))``."""
+
     @staticmethod
-    def forward(ctx, q, k, v, active, causal, window):
-        ctx.save_for_backward(q, k, v, active)
-        ctx.causal, ctx.window = causal, window
+    def forward(q, k, v, active, causal, window):
         return fa.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                       active=active)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, active, causal, window = inputs
+        ctx.save_for_backward(q, k, v, active)
+        ctx.causal, ctx.window = causal, window
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.models.attention import sdpa_chunked
         q, k, v, active = ctx.saved_tensors
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = sdpa_chunked(*qkv, causal=ctx.causal, window=ctx.window)
-            if active is not None:
-                out = ref.mask_lanes(active, out)
-            dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None, None
+
+        def attend(q, k, v):
+            out = sdpa_chunked(q, k, v, causal=ctx.causal, window=ctx.window)
+            return out if active is None else ref.mask_lanes(active, out)
+
+        # torch.func.vjp composes with the transforms the forward ran under
+        _, vjp = torch.func.vjp(attend, q, k, v)
+        return (*vjp(g), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, active, causal, window):
+        """Fold the vmapped axis into the batch axis B (the kernel takes
+        (B, S, H, D)), launch once, unfold. An unbatched q, k, v or
+        ``active`` is broadcast over the vmapped axis."""
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.unsqueeze(0).expand(n, *t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape(n * t.shape[1], *t.shape[2:])
+
+        q_dim, k_dim, v_dim, a_dim = in_dims[:4]
+        if active is not None:
+            active = fold(active, a_dim)
+        out = _FlashAttention.apply(fold(q, q_dim), fold(k, k_dim),
+                                    fold(v, v_dim), active, causal, window)
+        return out.reshape(n, -1, *out.shape[1:]), 0
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,

@@ -11,7 +11,11 @@ Which scan a full-sequence block uses is ``impl``, as for attention
 Hopper kernel on a CUDA tensor, its plain version on a CPU tensor; the
 default on ``cuda``), ``"chunked"`` is ``ssd_chunked`` (the reference's own
 path; the default on ``cpu``), ``"plain"`` is the kernel's plain version
-``kernels.ssd_scan.ssd_scan_plain`` on any device. Each of them starts from
+``kernels.ssd_scan.ssd_scan_plain`` on any device. With no ``impl`` given,
+``scan_impl`` picks: "chunked" whenever autograd needs the scan's result
+(the kernel has no backward; the reference's model always runs
+``ssd_chunked``, in training too), else the device's default, so the
+kernel serves every no-grad prefill on the card. Each of them starts from
 a block's ``init_state`` when it is given (the TPU kernel always starts from
 zero; the port's kernel takes the state as an input).
 
@@ -168,6 +172,21 @@ def _project(params, x, d_model, s: SSMConfig):
     return z, xBC, dt_raw, (d_in, nh, ch)
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd (or ``torch.func.grad``) would need a result
+    computed from ``tensors``: grad mode is on and one of them requires
+    grad. ``None`` entries are skipped."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def scan_impl(device, grad: bool) -> str:
+    """The scan a block runs when no ``impl`` is given: "chunked" when
+    autograd needs its result, else ``attention.default_impl(device)``
+    ("kernel" on ``cuda``). A pure function of (device, needs-grad)."""
+    return "chunked" if grad else default_impl(device)
+
+
 def _scan(impl: str, x, dt, A, B, C, chunk: int, init_state):
     if impl == "chunked":
         return ssd_chunked(x, dt, A, B, C, chunk=chunk, init_state=init_state)
@@ -195,8 +214,9 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
     xh = xs.reshape(b, S, nh, s.head_dim)    # a view: the kernel reads xBC
     dt = F.softplus(dt_raw.to(_F32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, state = _scan(impl or default_impl(x.device), xh, dt, A, Bm, Cm,
-                     s.chunk_size, init_state)
+    impl = impl or scan_impl(x.device,
+                             needs_grad(xh, dt, A, Bm, Cm, init_state))
+    y, state = _scan(impl, xh, dt, A, Bm, Cm, s.chunk_size, init_state)
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(b, S, d_in)
     y = layers.rms_norm(y * F.silu(z), params["norm_w"])

@@ -33,10 +33,13 @@ GRID = [
     (1, 200, 200, 4, 2, 128, True, 0),      # non-block-multiple seq
     (1, 64, 192, 8, 8, 64, False, 0),       # cross-length
 ]
-# beyond the reference's grid: a window without causality, and Sq > Sk
+# beyond the reference's grid: a window without causality, Sq > Sk, and
+# the head dims of the reduced configs (16) and of zamba2-7b (112)
 EXTRA = [
     (1, 100, 100, 4, 2, 64, False, 24),
     (2, 130, 70, 4, 2, 128, True, 0),
+    (2, 72, 72, 4, 2, 16, True, 0),
+    (1, 80, 80, 4, 4, 112, True, 32),
 ]
 
 
@@ -125,6 +128,82 @@ def test_gradient_matches_reference(causal, window, active):
         np.testing.assert_allclose(_np(got), np.asarray(want), **GRAD_TOL)
 
 
+def _lane_loss(attend, gw, active, causal, window):
+    """A lane's loss through ``attend`` (the port's ``ops.flash_attention``
+    or the reference's), weighted by the lane's own ``gw``."""
+    def loss(q, k, v, gw, active):
+        return (attend(q, k, v, causal, window, active) * gw).sum()
+    return loss
+
+
+@pytest.mark.parametrize("active", [None, "shared", "per_lane"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 16)])
+def test_vmap_grad_matches_reference(causal, window, active):
+    """``torch.func.vmap(torch.func.grad(...))`` through ``ops.flash_attention``
+    (impl "kernel", the plain version on the CPU), as a lane pool steps its
+    lanes, equals the same through ``sdpa_chunked`` and matches
+    ``jax.vmap(jax.grad(...))`` of the reference's op. ``active`` is absent,
+    one predicate shared by every lane, or a predicate per lane."""
+    lanes, B, S, Hq, Hkv, D = 3, 2, 40, 4, 2, 16
+    rng = np.random.default_rng(21)
+    q, k, v, gw = (rng.standard_normal((lanes, B, S, h, D)).astype(np.float32)
+                   for h in (Hq, Hkv, Hkv, Hq))
+    act = {None: None, "shared": np.array([1, 0], np.int32),
+           "per_lane": np.array([[1, 0], [0, 1], [1, 1]], np.int32)}[active]
+    a_dim = 0 if active == "per_lane" else None
+
+    def port(q, k, v, causal, window, act):
+        return ops.flash_attention(q, k, v, causal, window, active=act)
+
+    def chunked(q, k, v, causal, window, act):
+        out = attention.sdpa_chunked(q, k, v, causal=causal, window=window)
+        return out if act is None else ref.mask_lanes(act, out)
+
+    def jax_ref(q, k, v, causal, window, act):
+        return jops.flash_attention(q, k, v, causal, window, True, active=act)
+
+    t_act = None if act is None else torch.from_numpy(act)
+    grads = {}
+    for name, attend in (("kernel", port), ("chunked", chunked)):
+        fn = torch.func.vmap(torch.func.grad(
+            _lane_loss(attend, None, None, causal, window), argnums=(0, 1, 2)),
+            in_dims=(0, 0, 0, 0, a_dim))
+        grads[name] = fn(*(torch.from_numpy(a) for a in (q, k, v, gw)),
+                         t_act)
+    expect = jax.vmap(jax.grad(_lane_loss(jax_ref, None, None, causal, window),
+                               argnums=(0, 1, 2)),
+                      in_axes=(0, 0, 0, 0, a_dim))(
+        *(jnp.asarray(a) for a in (q, k, v, gw)),
+        None if act is None else jnp.asarray(act))
+    for got, same, want in zip(grads["kernel"], grads["chunked"], expect):
+        assert got.shape == (lanes,) + same.shape[1:]
+        np.testing.assert_allclose(_np(got), _np(same), **GRAD_TOL)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **GRAD_TOL)
+
+
+def test_vmap_folds_lanes_into_one_call(monkeypatch):
+    """Under vmap the op calls the kernel's entry once, on the lanes folded
+    into its batch axis, with an unbatched predicate repeated per lane."""
+    calls = []
+    real = fa.flash_attention_fwd
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape),
+                      None if kw["active"] is None
+                      else kw["active"].tolist()))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", spy)
+    q = torch.randn(3, 2, 24, 4, 16)
+    k = torch.randn(2, 24, 2, 16)
+    out = torch.func.vmap(
+        lambda q: ops.flash_attention(q, k, k, active=torch.tensor([1, 0])))(q)
+    assert calls == [((6, 24, 4, 16), (6, 24, 2, 16), [1, 0, 1, 0, 1, 0])]
+    for lane in range(3):
+        want = ops.flash_attention(q[lane], k, k, active=torch.tensor([1, 0]))
+        assert torch.equal(out[lane], want)
+
+
 @pytest.mark.parametrize("causal,window,q_offset,valid_len", [
     (True, 0, 0, None), (False, 0, 0, None), (True, 8, 0, None),
     (True, 0, 5, [20, 33]),
@@ -192,13 +271,22 @@ def test_no_card_raises_instead_of_falling_back(call, exc):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float16, 64, None), (torch.float64, 128, None),
-    (torch.bfloat16, 32, None), (torch.float32, 96, None),
+    (torch.bfloat16, 32, "wgmma"), (torch.float32, 96, "simt"),
+    (torch.float32, 16, "simt"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 112, "wgmma"), (torch.float32, 112, "simt"),
+    (torch.bfloat16, 48, "wgmma"), (torch.float32, 80, "simt"),
+    (torch.bfloat16, 24, None), (torch.float32, 144, None),
+    (torch.bfloat16, 256, None), (torch.float32, 8, None),
+    (torch.float32, 0, None), (torch.bfloat16, 120, None),
 ])
 def test_attention_body_by_dtype_and_head_dim(dtype, D, body):
     """bf16 runs the tensor-core body, f32 the CUDA-core body (no TF32),
-    head dims 64 and 128 only; anything else has no body and raises."""
+    each at every head dim that is a multiple of 16 from 16 to 128 (the
+    reduced configs' 16, zamba2-7b's 112); anything else has no body and
+    raises with the rule in its message."""
     if body is None:
-        with pytest.raises(ValueError, match="no kernel body|head dim"):
+        with pytest.raises(ValueError,
+                           match="no kernel body|multiple of 16 from 16 to 128"):
             fa.attention_body(dtype, D)
     else:
         assert fa.attention_body(dtype, D) == body

@@ -2,6 +2,13 @@
 CPU against the JAX Pallas kernel in interpret mode, the reference's
 ``ops.ssd`` and the recurrent oracle; the lane mask; the chunk rule; and the
 no-fallback rule of the kernel's wrapper."""
+import contextlib
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -260,11 +267,210 @@ def test_cuda_wrapper_refuses_grad():
         sd.ssd_scan_cuda(x, *tin[1:], chunk=32)
 
 
-def test_shared_memory_plan_fits_the_serving_shape():
-    """mamba2-130m's prefill (chunk 128, head dim 64, state 128) fits one
-    CTA's shared memory (227 KB) in the kernel's layout; a head dim of 128
-    at that chunk and state does not, and the wrapper would refuse it."""
-    assert sd.smem_bytes(128, 64, 128) == 219_648 <= sd._MAX_SMEM
-    assert sd.smem_bytes(128, 128, 128) > sd._MAX_SMEM
-    assert sd.smem_bytes(9, 16, 16) == 4 * (2 * 16 * 16 + 12 * 16 + 12 * 36
-                                            + 16 * 16 + 12)
+@pytest.fixture(scope="module")
+def layout(tmp_path_factory):
+    """csrc/ssd_plan.cuh built alone by the host C++ compiler: the sums the
+    kernels launch with (shared memory, grids, scratch, 16-byte rows)."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/ssd_plan.cuh")
+    csrc = Path(sd.__file__).parent / "csrc"
+    lib = tmp_path_factory.mktemp("ssd_plan") / "ssd_plan.so"
+    subprocess.run([cxx, "-x", "c++", "-", "-std=c++17", "-O1", "-shared",
+                    "-fPIC", "-I", str(csrc), "-o", str(lib)],
+                   input=b'#include "ssd_plan.cuh"\n', check=True)
+    lib = ctypes.CDLL(str(lib))
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.repro_ssd_scan_layout.argtypes = [i] * 7 + [ctypes.POINTER(ll)]
+    lib.repro_ssd_scan_copyable.argtypes = [p] * 3 + [i] * 6 + [ll] * 7
+    lib.repro_ssd_scan_layout.restype = i
+    lib.repro_ssd_scan_copyable.restype = i
+    return lib
+
+
+def _layout(lib, b, S, nh, hd, N, Q, dtype) -> dict:
+    out = (ctypes.c_longlong * 11)()
+    assert lib.repro_ssd_scan_layout(b, S, nh, hd, N, Q,
+                                     sd._DTYPE_CODE[dtype], out) == 0
+    v = list(out)
+    return {"scratch": {"la": v[0], "cb": v[1], "cs": v[2]},
+            "grids": {"chunk": tuple(v[3:6]), "state": tuple(v[6:9]),
+                      "out": tuple(v[3:6])},
+            "smem": {"chunk": v[9], "out": v[10]}}
+
+
+# an H100 SM's shared memory, the most one CTA may take, and what the card
+# keeps for each resident CTA (CUDA C++ Programming Guide, compute 9.0)
+SM_SMEM, CTA_MAX_SMEM, CTA_RESERVED = 233_472, 232_448, 1_024
+
+
+def test_shared_memory_plan_fits_the_serving_shape(layout):
+    """mamba2-130m's prefill (1, 1024, 24, 64), N = 128, chunk 128: the
+    chunk and output kernels run one CTA per (chunk, head, batch), 192 CTAs
+    for 132 SMs, each small enough in bf16 for two CTAs per SM; the state
+    kernel covers 24 heads x 8192 entries, 4 per thread; the scratch is the
+    log decays, C·Bᵀ once per chunk (512 KiB) and one (N, hd) f32 state per
+    chunk and head (6.3 MB). In f32 (three bf16 pieces per operand) a CTA
+    still fits, one per SM."""
+    pl = _layout(layout, 1, 1024, 24, 64, 128, 128, torch.bfloat16)
+    assert pl["grids"] == {"chunk": (8, 24, 1), "state": (8, 24, 1),
+                           "out": (8, 24, 1)}
+    assert np.prod(pl["grids"]["chunk"]) >= 132
+    assert pl["scratch"] == {"la": 8 * 24 * 128, "cb": 8 * 128 * 128,
+                             "cs": 8 * 24 * 128 * 64}
+    assert 4 * pl["scratch"]["cb"] == 512 * 1024
+    assert 4 * pl["scratch"]["cs"] == 6_291_456
+    assert pl["smem"] == {"chunk": 109_568, "out": 109_568}
+    assert all(SM_SMEM // (v + CTA_RESERVED) == 2
+               for v in pl["smem"].values())
+    f32 = _layout(layout, 1, 1024, 24, 64, 128, 128, torch.float32)
+    assert max(f32["smem"].values()) <= CTA_MAX_SMEM
+    assert SM_SMEM // (f32["smem"]["out"] + CTA_RESERVED) == 1
+
+
+def test_plan_pads_ragged_chunks_and_bounds_shared_memory(layout):
+    """A chunk of 9 (S = 9 < 32) or 10 is padded to 16 rows; the scratch
+    keeps the padded decays. A head dim of 128 fits in bf16 but not in f32
+    at chunk 128 and state 128, which the wrapper refuses; a chunk above
+    128, or one that does not divide S, is no layout at all."""
+    pl = _layout(layout, 2, 9, 3, 16, 16, 9, torch.float32)
+    assert pl["grids"]["chunk"] == (1, 3, 2)
+    assert pl["grids"]["state"] == (1, 3, 2)
+    assert pl["scratch"]["la"] == 2 * 1 * 3 * 16
+    assert pl["scratch"]["cb"] == 2 * 1 * 16 * 16
+    assert _layout(layout, 1, 30, 2, 16, 16, 10, torch.float32)[
+        "scratch"]["la"] == 1 * 3 * 2 * 16
+    assert max(_layout(layout, 1, 1024, 24, 128, 128, 128, torch.bfloat16)
+               ["smem"].values()) <= CTA_MAX_SMEM
+    assert max(_layout(layout, 1, 1024, 24, 128, 128, 128, torch.float32)
+               ["smem"].values()) > CTA_MAX_SMEM
+    out = (ctypes.c_longlong * 11)()
+    assert layout.repro_ssd_scan_layout(1, 256, 2, 16, 16, 256, 1, out) == 1
+    assert layout.repro_ssd_scan_layout(1, 30, 2, 16, 16, 7, 1, out) == 1
+
+
+def test_copyable_rows_of_the_models_views(layout):
+    """The kernels copy x, B and C 16 bytes at a time when every row starts
+    on a 16-byte boundary: contiguous tensors and mamba2-130m's views of one
+    conv output do; a row offset by one element or a bf16 row of 4 values
+    does not (those rows are read one element at a time)."""
+    def copyable(x, B, C):
+        b, S, nh, hd = x.shape
+        return bool(layout.repro_ssd_scan_copyable(
+            x.data_ptr(), B.data_ptr(), C.data_ptr(), b, S, nh, hd,
+            B.shape[-1], x.element_size(), *x.stride()[:3],
+            *B.stride()[:2], *C.stride()[:2]))
+
+    b, S, nh, hd, N = 1, 64, 24, 64, 128
+    xBC = torch.zeros(b, S, nh * hd + 2 * N, dtype=torch.bfloat16)
+    x = xBC[..., :nh * hd].reshape(b, S, nh, hd)
+    Bv, Cv = xBC[..., nh * hd:nh * hd + N], xBC[..., nh * hd + N:]
+    assert x.stride(1) == 1792
+    assert copyable(x, Bv, Cv)
+    assert not copyable(x, xBC[..., 1:N + 1], Cv)
+    small = torch.zeros(2, 8, 3, 4, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 8, 4, dtype=torch.bfloat16)
+    assert not copyable(small, rows, rows)
+    assert copyable(small.float(), rows.float(), rows.float())
+
+
+def _c_params(src: str, symbol: str) -> list:
+    decl = re.search(r'extern "C" int ' + symbol + r'\(([^)]*)\)', src)
+    return [a.strip() for a in decl.group(1).split(",")]
+
+
+# (C return code, out[0..5] the source fills in, the error expected)
+PLAN_CASES = {
+    "serving_shape": (0, (1_728_512, 109_568, 109_568, 232_448, 2, 2), None),
+    "shared_memory": (1, (0, 216_064, 250_000, 232_448, 0, 0),
+                      "250000 bytes of shared memory"),
+    "refused_shape": (1, (0, 0, 0, 0, 0, 0), "chunk is at most 128"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_reads_the_sources_plan(case, monkeypatch):
+    """``plan`` takes a call's scratch size, shared memory and CTAs per SM
+    from the C source's ``repro_ssd_scan_plan`` (the one place that lays
+    the kernels out), through as many arguments as the source declares, and
+    raises ValueError naming what the kernels refuse: too much shared memory
+    for the device, or a shape (a chunk above 128)."""
+    src = (Path(sd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    rc, filled, error = PLAN_CASES[case]
+    seen = []
+
+    def fake(*args):
+        seen.append(args)
+        for k, v in enumerate(filled):
+            args[-1][k] = v
+        return rc
+
+    monkeypatch.setattr(sd, "_bind_plan", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    sd.plan.cache_clear()
+    try:
+        if error is not None:
+            with pytest.raises(ValueError, match=error):
+                sd.plan(1, 1024, 24, 64, 128, 128, torch.float32, 0)
+        else:
+            pl = sd.plan(1, 1024, 24, 64, 128, 128, torch.bfloat16, 0)
+            assert pl.scratch_floats == 1_728_512
+            assert pl.smem == {"chunk": 109_568, "out": 109_568}
+            assert pl.ctas_per_sm == {"chunk": 2, "out": 2}
+            assert pl.max_smem == 232_448
+    finally:
+        sd.plan.cache_clear()
+    assert len(seen) == 1
+    assert len(seen[0]) == len(_c_params(src, "repro_ssd_scan_plan"))
+    assert seen[0][6] == (1 if error is None else 0)
+
+
+def test_launches_count_calls_and_the_entry_takes_every_argument(
+        monkeypatch):
+    """``launches`` counts wrapper calls (one per prefill layer),
+    ``launches_by_body`` the body by dtype, ``scalar_reads`` the calls in
+    which the C entry reports rows it could not copy 16 bytes at a time;
+    the wrapper passes the C entry as many arguments as the source
+    declares, one scratch of the plan's size among them, and no count of
+    CUDA kernels (that is read from a trace on the card)."""
+    src = (Path(sd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    n_params = len(_c_params(src, "repro_ssd_scan"))
+    seen = []
+    scalar = iter((0, 0, 1))
+
+    def fake(*args):
+        seen.append(args)
+        sd._SCALAR.value = next(scalar)
+        return 0
+
+    monkeypatch.setattr(sd, "_check", lambda *a: sd.Plan(
+        scratch_floats=1234, smem={}, ctas_per_sm={}, max_smem=0))
+    monkeypatch.setattr(sd, "_bind", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    sizes = []
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: sizes.append(a)
+                        or empty(*a, **k))
+    before = (sd.ssd_scan_cuda.launches,
+              dict(sd.ssd_scan_cuda.launches_by_body),
+              sd.ssd_scan_cuda.scalar_reads)
+    _, tin = _both(_inputs(12, 2, 64, 3, 16, 16), "float32")
+    sd.ssd_scan_cuda(*tin, chunk=32)
+    xb = [t.to(torch.bfloat16) if t.dim() != 1 and i != 1 else t
+          for i, t in enumerate(tin)]
+    sd.ssd_scan_cuda(*xb, chunk=32)
+    sd.ssd_scan_cuda(xb[0][..., :12], *xb[1:3], xb[3][..., :12],
+                     xb[4][..., :12], chunk=32)
+    assert len(seen) == 3 and {len(a) for a in seen} == {n_params}
+    assert (1234,) in sizes
+    assert sd.ssd_scan_cuda.launches == before[0] + 3
+    assert not hasattr(sd.ssd_scan_cuda, "kernels")
+    assert sd.ssd_scan_cuda.launches_by_body == {
+        "bf16": before[1]["bf16"] + 2,
+        "f32_split3": before[1]["f32_split3"] + 1}
+    assert sd.ssd_scan_cuda.scalar_reads == before[2] + 1
+    assert [a[-3] for a in seen] == [0, 1, 1]

@@ -340,3 +340,68 @@ def test_prefill_rejects_a_seq_that_is_not_a_chunk_multiple(ref_model):
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="dense and ssm"):
         Model(configs.get(name).reduced(), device="cpu")
+
+
+@pytest.mark.parametrize("device,grad,want", [
+    ("cuda", False, "kernel"), ("cuda", True, "chunked"),
+    ("cpu", False, "chunked"), ("cpu", True, "chunked"),
+])
+def test_scan_route_by_device_and_grad(device, grad, want):
+    """With no ``impl`` given, a block runs the kernel only where no gradient
+    is needed; under autograd it takes the reference model's own scan."""
+    assert ssm.scan_impl(torch.device(device), grad) == want
+
+
+def test_block_route_under_grad_transforms(monkeypatch):
+    """Where the device default is "kernel" (the card), a block under
+    ``torch.func.grad``, ``vmap(grad)`` or ``torch.autograd`` routes its
+    scan to "chunked", and its gradient matches ``jax.grad`` of the
+    reference's block; without grad the kernel route stays."""
+    monkeypatch.setattr(ssm, "default_impl", lambda device: "kernel")
+    seen = []
+    real = ssm._scan
+    monkeypatch.setattr(ssm, "_scan",
+                        lambda impl, *a: seen.append(impl) or real(impl, *a))
+    jp, tp = _small_params()
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((3, 2, 32, D)) * 0.5).astype(np.float32)
+    w = rng.standard_normal((3, 2, 32, D)).astype(np.float32)
+
+    def loss(x, w):
+        return (ssm.mamba2_block(tp, x, D, SMALL)[0] * w).sum()
+
+    g = torch.func.vmap(torch.func.grad(loss))(torch.from_numpy(x),
+                                               torch.from_numpy(w))
+    g0 = torch.func.grad(loss)(torch.from_numpy(x[0]), torch.from_numpy(w[0]))
+    xt = torch.from_numpy(x[0]).requires_grad_()
+    loss(xt, torch.from_numpy(w[0])).backward()
+    with torch.no_grad():
+        ssm.mamba2_block(tp, torch.from_numpy(x[0]), D, SMALL)
+    assert seen == ["chunked"] * 3 + ["kernel"]
+
+    def j_loss(x, w):
+        return (jssm.mamba2_block(jp, x, D, J_SMALL)[0] * w).sum()
+
+    expect = jax.vmap(jax.grad(j_loss))(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(_np(g), np.asarray(expect), rtol=ATOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(_np(g0), _np(g[0]), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(_np(xt.grad), _np(g0), rtol=1e-6, atol=1e-6)
+
+
+def test_needs_grad_sees_grad_transforms():
+    x = torch.randn(3)
+    assert not ssm.needs_grad(x, None)
+    assert ssm.needs_grad(x.requires_grad_(), None)
+    with torch.no_grad():
+        assert not ssm.needs_grad(x)
+    seen = []
+
+    def f(y):
+        seen.append(ssm.needs_grad(y))
+        return y.sum()
+
+    torch.func.grad(f)(torch.randn(3))
+    torch.func.vmap(torch.func.grad(f))(torch.randn(2, 3))
+    torch.func.vmap(f)(torch.randn(2, 3))
+    assert seen == [True, True, False]
