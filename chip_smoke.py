@@ -15,9 +15,12 @@ Phases, in order; any failure propagates and the exit code is non-zero:
 2. [kernel] each kernel against its plain PyTorch version on the card:
    flash attention (B3) at the serving path's shape and at GQA / window /
    f32 / ragged / lane-masked cases, at head dims 16 (the reduced configs,
-   f32) and 112 (zamba2-7b, bf16) too, and ``torch.func.vmap(grad)`` of a
-   loss through ``ops.flash_attention`` (one B3 launch per vmapped call)
-   against the same through ``sdpa_chunked``; the packed GEMM (B1) at the
+   f32) and 112 (zamba2-7b, bf16) too, at [train-lm]'s pool-step shape
+   (4, 512, 32, 64) bf16 causal, and ``torch.func.vmap(grad)`` of a loss
+   through ``ops.flash_attention`` (one B3 launch per vmapped call) against
+   the same through ``sdpa_chunked``, in f32 (simt body) and at
+   [train-lm]'s 2 lanes of (2, 512, 32, 64) bf16 (wgmma body); the packed
+   GEMM (B1) at the
    reference test shapes, strided and lane-masked, timed in both of the kernel-mode
    step's orientations (x, and the gradient GEMM's x^T view); the RMSNorm
    pair (B2 lane-batched, B5 rows), masked, and B2's lanes against B5 bit
@@ -53,7 +56,20 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    go through B1 (its f32 body), at J=16 and three occupancies, with
    every kernel's launch count read around that run; then where /
    compact / kernel step times; [profile] the idle share of one LeNet
-   pool step and one kernel-mode step.
+   pool step and one kernel-mode step;
+7. [train-lm] the transformer sweep: ``run_sweep`` over StableLM-2 1.6B at
+   its published width with the depth cut to 4 layers (the cut is logged),
+   8 tasks of skewed budgets on a refilled lane pool whose pack factor
+   ``auto_nppn`` picks from measured bytes within 60 % of the card's
+   memory; B3's launches read around the sweep (2 a layer a pool step and
+   a probe step: the forward, and remat's recompute in the backward), the
+   per-task losses against the same sweep through ``sdpa_chunked`` and
+   the gaps of its rounding-only twin (``sdpa_chunked`` with P·V in bf16),
+   what remat holds from forward to backward and the peaks of the gradient
+   and of a pool step with and without remat, at the sweep's pack factor
+   and at one lane of 8,192 tokens, [profile] one pool step; then
+   on the reduced StableLM-2 a drain resumed at ``max_pack=2``, an
+   ``adaptive_pack`` sweep and the card's losses against the CPU's.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -100,6 +116,13 @@ SMALL_LOGIT_ATOL_F32 = 1e-4
 # another order, the reference's own gradient bound (tests/test_ssm_
 # attention.py, tests/test_torch_flash_attention.py GRAD_TOL)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# the same in bf16 (q, k, v and their gradients bf16): both backwards are
+# sdpa_chunked's, so the gradients differ only through the cotangent
+# 2·out·w, whose out the two forwards round apart by up to one bf16 ulp
+# (2^-8 relative), and by the gradients' own rounding to bf16: held at
+# 2^-5 (8 ulps) of the largest gradient; a forward that drops a mask moves
+# the cotangent, and so the gradients, by O(1) of their scale
+BF16_GRAD_REL = 2.0 ** -5
 # packed GEMM and RMSNorm vs their plain versions. f32: F32_TOL (two
 # summation orders). bf16: both compute in f32 and round the output once,
 # so they may land one bf16 ulp apart; an ulp is at most 2^-7 of the value,
@@ -138,6 +161,42 @@ LONG_NORM = (2, 64, 4096)
 # the kernel-mode pool: J, d, o, nb (benchmarks/bench_kernels.py:164-166)
 KERNEL_POOL = (16, 256, 256, 256)
 LENET_BATCH = 64            # the paper's batch (§III-A)
+
+# [train-lm]: StableLM-2 1.6B at its published width with the depth cut
+# from 24 to 4 layers. A lane holds params, grads and two AdamW moments in
+# f32, 16 B a parameter: at 24 layers (1.645 B params) that is 26 GB a
+# lane and two lanes fill the card; at 4 layers (617 M params) 9.9 GB
+TRAIN_LM_LAYERS = 4
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 2, 512
+TRAIN_LM_BUDGETS = (2, 6, 3, 5, 2, 4, 6, 3)     # skewed per-task budgets
+TRAIN_LM_LRS = tuple(float(x) for x in np.geomspace(1e-4, 3e-3, 8))
+TRAIN_LM_HBM_FRACTION = 0.6  # hbm_budget: of the card's memory
+# remat's peaks are read once more at one lane of 8,192 tokens (16 x 512),
+# the tokens of a 2 x 4096 micro-batch at StableLM-2's training context:
+# there the blocks' activations (about 0.11 MB a token a layer, twice that
+# with what the backward keeps) outweigh AdamW's five copies of the params
+# (12.3 GB), so without remat the gradient sets the pool step's peak
+TRAIN_LM_REMAT_TOKENS = 8192
+# per-task losses through B3 against the same sweep through sdpa_chunked,
+# both bf16 compute on the card. Step 0 (the same params, only the forward
+# differs): the two attention paths round their bf16 outputs apart by
+# about one bf16 ulp (2^-8 relative), which reaches a mean token loss of
+# about log V = 11.5 through 4 layers; a relative gap above 5e-3 (about
+# 1.3 bf16 ulps, 0.06 at 11.5) would mean the paths compute something
+# else. Later steps: AdamW's first update moves each weight by about
+# lr·sign(g), so a weight whose gradient two roundings of the same
+# function give opposite signs moves 2·lr apart, and the trajectories
+# part by more than rounding. The run shows it with a rounding-only twin,
+# sdpa_chunked with P·V in bf16 against f32 P: on an H100 it parts from
+# sdpa_chunked by 5.2e-4 at step 0 and by up to 0.084 later, B3 by 5.8e-4
+# and 0.20 (1.5 % at a loss of 13.6), both first at step 2 and in the
+# tasks of lr >= 1.1e-3. Held at 5 %: 3x B3's reading, 7x the twin's
+TRAIN_LM_LOSS_RTOL = 5e-3
+TRAIN_LM_TRAJ_RTOL = 5e-2
+# the reduced model's per-task losses, card against CPU (f32 both, the
+# kernel's f32 body against sdpa_chunked, other GEMM orders): the [small]
+# phase's logit bound
+XDEV_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def log(*a):
@@ -390,6 +449,8 @@ def check_flash_attention() -> dict:
         ("d112_causal", 1, 1024, 1024, 32, 32, 112, bf16, True, 0),
         ("d112_window", 1, 777, 777, 32, 32, 112, bf16, True, 256),
         ("d16_causal", 2, 300, 300, 4, 2, 16, bf16, True, 0),
+        # [train-lm]'s pool step: 2 lanes of batch 2 folded into B
+        ("train_lm", 4, 512, 512, 32, 32, 64, bf16, True, 0),
     ]
     errs = {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window in cases:
@@ -458,52 +519,78 @@ def check_flash_attention() -> dict:
 
 def check_attention_vmap_grad(gen) -> None:
     """``torch.func.vmap(torch.func.grad(loss))`` through
-    ``ops.flash_attention`` on the card, as a lane pool steps 3 lanes of
-    (2, 96, 4, 16) f32 with a shared lane mask, against the same through
-    ``sdpa_chunked``: each vmapped call launches B3 exactly once (the lanes
-    folded into its batch axis), and the gradients agree within GRAD_TOL.
-    The loss is quadratic in the output, so the kernel's forward enters
-    the gradient."""
+    ``ops.flash_attention`` on the card, as a lane pool steps its lanes,
+    against the same through ``sdpa_chunked``: 3 lanes of (2, 96, 4, 16)
+    f32 with a shared lane mask (the simt body), and [train-lm]'s pool
+    step, 2 lanes of (2, 512, 32, 64) bf16 causal (the wgmma body). Each
+    vmapped call launches B3 exactly once (the lanes folded into its batch
+    axis), on the body of its dtype, and the gradients agree: f32 within
+    GRAD_TOL; bf16 within BF16_GRAD_REL of the largest gradient, with the
+    vmapped forward within BF16_MAX_ABS of ``sdpa_chunked``'s. The loss is
+    quadratic in the output, so the kernel's forward enters the
+    gradient."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.models.attention import sdpa_chunked
-    lanes, B, S, Hq, Hkv, D = 3, 2, 96, 4, 2, 16
-    mk = lambda h: torch.randn(lanes, B, S, h, D, generator=gen,
-                               device="cuda")
-    q, k, v, w = mk(Hq), mk(Hkv), mk(Hkv), mk(Hq)
-    active = torch.tensor([1, 0], device="cuda")
-    for causal, window in ((True, 0), (True, 32), (False, 0)):
-        def port(q, k, v, w):
-            out = ops.flash_attention(q, k, v, causal, window, active=active)
-            return (out * out * w).sum()
+    f32_case = (3, 2, 96, 4, 2, 16, torch.float32,
+                torch.tensor([1, 0], device="cuda"),
+                ((True, 0), (True, 32), (False, 0)))
+    bf16_case = (2, 2, 512, 32, 32, 64, torch.bfloat16, None, ((True, 0),))
+    for lanes, B, S, Hq, Hkv, D, dt, active, masks in (f32_case, bf16_case):
+        mk = lambda h: torch.randn(lanes, B, S, h, D, generator=gen,
+                                   device="cuda").to(dt)
+        q, k, v, w = mk(Hq), mk(Hkv), mk(Hkv), mk(Hq).float()
+        body = "wgmma" if dt == torch.bfloat16 else "simt"
+        for causal, window in masks:
+            def port(q, k, v):
+                return ops.flash_attention(q, k, v, causal, window,
+                                           active=active)
 
-        def chunked(q, k, v, w):
-            out = ref.mask_lanes(active, sdpa_chunked(
-                q, k, v, causal=causal, window=window))
-            return (out * out * w).sum()
+            def chunked(q, k, v):
+                out = sdpa_chunked(q, k, v, causal=causal, window=window)
+                return out if active is None else ref.mask_lanes(active, out)
 
-        grads = {}
-        for name, loss in (("kernel", port), ("chunked", chunked)):
-            before = fa.flash_attention_cuda.launches
-            grads[name] = torch.func.vmap(torch.func.grad(
-                loss, argnums=(0, 1, 2)))(q, k, v, w)
-            torch.cuda.synchronize()
-            launched = fa.flash_attention_cuda.launches - before
-            if launched != (1 if name == "kernel" else 0):
-                raise AssertionError(f"vmap(grad) through {name}: {launched} "
-                                     f"B3 launches")
-        errs = [(a - b).abs().max().item()
-                for a, b in zip(grads["kernel"], grads["chunked"])]
-        ok = all(torch.allclose(a, b, **GRAD_TOL) and torch.isfinite(a).all()
-                 for a, b in zip(grads["kernel"], grads["chunked"]))
-        log(f"[kernel] flash_attention vmap(grad) {lanes} lanes of "
-            f"{(B, S, Hq, D)} f32 causal={causal} window={window}: one B3 "
-            f"launch per call, grad max_abs_err vs sdpa_chunked "
-            f"{max(errs):.3g} ({GRAD_TOL})")
-        if not ok:
-            raise AssertionError(f"vmap(grad) through B3 disagrees with "
-                                 f"sdpa_chunked (max err {max(errs)})")
+            grads, outs = {}, {}
+            for name, attend in (("kernel", port), ("chunked", chunked)):
+                loss = lambda q, k, v, w: (attend(q, k, v).float() ** 2
+                                           * w).sum()
+                before = dict(fa.flash_attention_cuda.launches_by_body)
+                grads[name] = torch.func.vmap(torch.func.grad(
+                    loss, argnums=(0, 1, 2)))(q, k, v, w)
+                torch.cuda.synchronize()
+                after = fa.flash_attention_cuda.launches_by_body
+                launched = {b: after[b] - before[b] for b in after}
+                want = {b: int(name == "kernel" and b == body) for b in after}
+                if launched != want:
+                    raise AssertionError(f"vmap(grad) through {name}: B3 "
+                                         f"launches {launched}, want {want}")
+                if dt == torch.bfloat16:
+                    outs[name] = torch.func.vmap(attend)(q, k, v)
+            errs = [(a - b).abs().max().item()
+                    for a, b in zip(grads["kernel"], grads["chunked"])]
+            finite = all(torch.isfinite(a).all() for a in grads["kernel"])
+            if dt == torch.float32:
+                ok = finite and all(
+                    torch.allclose(a, b, **GRAD_TOL)
+                    for a, b in zip(grads["kernel"], grads["chunked"]))
+                tol = f"{GRAD_TOL}"
+            else:
+                scale = [b.abs().max().item() for b in grads["chunked"]]
+                out_err = (outs["kernel"].float()
+                           - outs["chunked"].float()).abs().max().item()
+                ok = finite and out_err <= BF16_MAX_ABS and all(
+                    e <= BF16_GRAD_REL * m for e, m in zip(errs, scale))
+                tol = (f"<= {BF16_GRAD_REL} x max |grad| "
+                       f"({', '.join(f'{m:.3g}' for m in scale)}); forward "
+                       f"max_abs_err {out_err:.3g} (max abs {BF16_MAX_ABS})")
+            log(f"[kernel] flash_attention vmap(grad) {lanes} lanes of "
+                f"{(B, S, Hq, D)} {dt} causal={causal} window={window}: one "
+                f"B3 launch per call ({body}), grad max_abs_err vs "
+                f"sdpa_chunked {', '.join(f'{e:.3g}' for e in errs)} ({tol})")
+            if not ok:
+                raise AssertionError(f"vmap(grad) through B3 disagrees with "
+                                     f"sdpa_chunked (max err {max(errs)})")
 
 
 def _agree(out, ref) -> tuple:
@@ -1381,12 +1468,14 @@ def serve_ssm(record: dict):
     return model, params, r0.prompt
 
 
-def profile_calls(calls) -> None:
+def profile_calls(calls) -> list:
     """For each (label, fn): the host-clock wall time of a warm call (median
     of 3, unprofiled), the sum of kernel durations in a torch.profiler trace
     of one call, the device's idle share (1 - kernels / wall), and the top
-    kernels by device time."""
+    kernels by device time. Returns (wall ms, {kernel: (ms, launches)}) per
+    call."""
     import torch
+    readings = []
     for label, fn in calls:
         walls = []
         for _ in range(4):
@@ -1408,6 +1497,8 @@ def profile_calls(calls) -> None:
         for name, (ms, n) in top:
             log(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} "
                 f"{name[:70]}")
+        readings.append((wall_ms, by_name))
+    return readings
 
 
 def profile_serving(model, params, prompt: np.ndarray) -> None:
@@ -1464,19 +1555,24 @@ def _run_refill(pool, tasks, **kw):
     return losses, stats, ex, time.perf_counter() - t0
 
 
-def _compare_losses(label: str, got: dict, want: dict) -> None:
+def _compare_losses(label: str, got: dict, want: dict, tol: dict = LOSS_TOL,
+                    phase: str = "train-lenet") -> float:
+    """Per-task losses allclose at ``tol``; logs the bit-equal count and
+    returns the largest gap."""
+    if sorted(got) != sorted(want) or any(
+            len(got[t]) != len(want[t]) for t in want):
+        raise AssertionError(f"{label}: tasks or step counts differ")
     flat_g = np.concatenate([np.float32(got[t]) for t in sorted(want)])
     flat_w = np.concatenate([np.float32(want[t]) for t in sorted(want)])
     equal = int((flat_g == flat_w).sum())
     diff = float(np.abs(flat_g - flat_w).max())
-    log(f"[train-lenet] {label}: {equal}/{flat_w.size} per-task losses "
-        f"bit-equal, max diff {diff:.3g} (allclose rtol=atol="
-        f"{LOSS_TOL['rtol']})")
-    if sorted(got) != sorted(want) or flat_g.shape != flat_w.shape:
-        raise AssertionError(f"{label}: tasks or step counts differ")
+    log(f"[{phase}] {label}: {equal}/{flat_w.size} per-task losses "
+        f"bit-equal, max diff {diff:.3g} (allclose "
+        f"{', '.join(f'{k}={v}' for k, v in tol.items())})")
     if not (np.isfinite(flat_g).all()
-            and np.allclose(flat_g, flat_w, **LOSS_TOL)):
+            and np.allclose(flat_g, flat_w, **tol)):
         raise AssertionError(f"{label}: per-task losses differ by {diff}")
+    return diff
 
 
 def train_lenet() -> tuple:
@@ -1760,6 +1856,377 @@ def profile_training(lenet_pool, lenet_batch, kernel_args) -> None:
          lambda: fn(params, opt, batch, hp, mask))))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the transformer sweep
+# ---------------------------------------------------------------------------
+
+def lm_batch_fn(cfg, seq: int, batch: int):
+    """``batch_fn(seed, step)`` of a sweep: ``SyntheticLM`` batches."""
+    from repro_torch.data import SyntheticLM
+    return lambda seed, step: SyntheticLM(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+        seed=seed).batch(step)
+
+
+def lm_pool(model, k: int, batch_fn, opt=None):
+    """A ``LanePool`` of k lanes of ``model`` under ``opt`` (default AdamW:
+    run_sweep's step and optimizer), every lane attached, and its stacked
+    batch of step 0."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import packing
+    from repro_torch.core.lanepool import LanePool
+    from repro_torch.launch.train import make_train_step
+    opt = opt or optim.adamw(weight_decay=0.0)
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)
+    tmpl = model.init(gen(0))
+    pool = LanePool(k, make_train_step(model, opt), template_params=tmpl,
+                    template_opt=opt.init(tmpl),
+                    template_hparams=torch.tensor(0.0, device="cuda"))
+    del tmpl
+    for lane in range(k):
+        params = model.init(gen(lane))
+        pool.attach(lane, lane, params, opt.init(params), torch.tensor(1e-3))
+        del params
+    batch = packing.stack_trees([packing.tree_map(
+        lambda x: torch.as_tensor(x, device="cuda"), batch_fn(lane, 0))
+        for lane in range(k)])
+    return pool, batch
+
+
+def lm_peaks(model, k: int, batch_fn) -> dict:
+    """Device bytes of a k-lane pool of ``model``, each as (total, above
+    what the pool held before the call): "held" is what the gradient keeps
+    from the end of its forward for its backward (what remat changes),
+    "gradient" the peak of ``vmap(grad)`` of the loss, "pool step" the peak
+    of one masked pool step, and "garbage" what that step left that only
+    the garbage collector frees (a reference cycle holding tensors). The
+    collector runs before each call, so that it frees nothing inside one."""
+    import gc
+
+    import torch
+    pool, batch = lm_pool(model, k, batch_fn)
+    held = []
+
+    def loss(params, batch):
+        out = model.loss(params, batch)[0]
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        return out
+    grad = torch.func.vmap(torch.func.grad(loss))
+    out, before = {}, {}
+    for name, fn in (("gradient", lambda: grad(pool.params, batch)),
+                     ("pool step", lambda: pool.step(batch))):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before[name] = torch.cuda.memory_allocated()
+        res = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del res
+        out[name] = (peak, peak - before[name])
+        if name == "gradient":
+            out["held"] = (held[0], held[0] - before[name])
+    after = torch.cuda.memory_allocated()
+    gc.collect()
+    out["garbage"] = after - torch.cuda.memory_allocated()
+    del pool, batch
+    return out
+
+
+# kernel kinds by name: B3; the GEMMs (cuBLAS and CUTLASS names);
+# reductions; copies, casts and layout changes; the rest elementwise
+KERNEL_KINDS = (("B3", ("fa_fwd",)),
+                ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
+                ("reduction", ("reduce", "norm_kernel")),
+                ("copy/cast", ("copy", "cat", "index", "scatter", "gather",
+                               "fill")))
+
+
+def kernel_kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "elementwise"
+
+
+def cpu_drawn_model(cfg, device):
+    """A ``models.model.Model`` whose ``init`` draws on the CPU from the
+    generator's seed and moves the params to the model's device, so a card
+    sweep and a CPU sweep start from the same values (a CUDA generator
+    draws other numbers than a CPU one)."""
+    import torch
+    from repro_torch.models.model import Model
+
+    class CpuDrawn(Model):
+        def init(self, generator):
+            params = Model(self.cfg, self.pctx, device="cpu").init(
+                torch.Generator().manual_seed(generator.initial_seed()))
+            return _tree_to(params, self.device)
+    return CpuDrawn(cfg, device=device)
+
+
+def train_lm_small() -> None:
+    """Drain and resume, adaptive packing, and card against CPU on the
+    reduced StableLM-2 (f32, head dim 16: B3's f32 body)."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.core.repack import RepackPolicy
+    from repro_torch.launch.sweep import SweepTask, run_sweep
+    cfg = configs.get("stablelm-1.6b").reduced()
+    model = cpu_drawn_model(cfg, "cuda")
+    bf = lm_batch_fn(cfg, 16, 2)
+    tasks = lambda n: [SweepTask(id=i, lr=1e-3, seed=i) for i in range(n)]
+    base = run_sweep(model, tasks(4), batch_fn=bf, steps=6, max_pack=4)
+    with tempfile.TemporaryDirectory() as ck:
+        part = run_sweep(model, tasks(4), batch_fn=bf, steps=6, max_pack=4,
+                         checkpoint_dir=ck,
+                         preempt=lambda st: st.global_steps >= 3)
+        res = run_sweep(model, tasks(4), batch_fn=bf, steps=6, max_pack=2,
+                        checkpoint_dir=ck)
+    if not part.preempted or res.preempted \
+            or part.global_steps != 3 or res.pack_factor != 2:
+        raise AssertionError(f"drain/resume: preempted {part.preempted}, "
+                             f"{res.preempted}; steps {part.global_steps}")
+    resumed = {i: part.losses[i] + res.losses[i] for i in base.losses}
+    log(f"[train-lm] {cfg.name}: drained at global step "
+        f"{part.global_steps} (pack 4), resumed at max_pack=2: lane_steps "
+        f"{part.lane_steps} + {res.lane_steps} of {base.lane_steps}")
+    _compare_losses("drain + resume at max_pack=2 vs uninterrupted",
+                    resumed, base.losses, phase="train-lm")
+
+    static = run_sweep(model, tasks(6), batch_fn=bf, steps=4, max_pack=6)
+    ad = run_sweep(model, tasks(6), batch_fn=bf, steps=4, max_pack=6,
+                   adaptive_pack=True, repack_policy=RepackPolicy(
+                       start_capacity=2, grow_occupancy=0.5,
+                       shrink_occupancy=0.1, cooldown_steps=1,
+                       max_capacity=6))
+    log(f"[train-lm] adaptive_pack: repacks {ad.repacks}, capacity_trace "
+        f"{ad.capacity_trace}, pack_factor {ad.pack_factor}, n_traces "
+        f"{ad.n_traces}, lane_steps {ad.lane_steps} vs {static.lane_steps}")
+    if ad.repacks < 1 or ad.lane_steps != static.lane_steps:
+        raise AssertionError("adaptive_pack: no repack or lane steps lost")
+    _compare_losses("adaptive_pack vs static pack 6", ad.losses,
+                    static.losses, phase="train-lm")
+
+    cpu = run_sweep(cpu_drawn_model(cfg, "cpu"), tasks(4), batch_fn=bf,
+                    steps=6, max_pack=4)
+    _compare_losses("card (B3 f32 body) vs cpu (chunked)", base.losses,
+                    cpu.losses, tol=XDEV_LOSS_TOL, phase="train-lm")
+
+
+def log_loss_gaps(what: str, losses: dict, ref: dict) -> float:
+    """Log the largest |losses - ref| by task and by step; return the
+    largest relative gap."""
+    gaps = {i: np.abs(np.float32(v) - np.float32(ref[i]))
+            for i, v in losses.items()}
+    steps = max(g.size for g in gaps.values())
+    log(f"[train-lm] largest |{what}| loss gap by task: " + ", ".join(
+        f"{i} (lr {TRAIN_LM_LRS[i]:.1e}): {g.max():.4f}"
+        for i, g in gaps.items()) + "; by step: " + ", ".join(
+        f"{s}: {max(g[s] for g in gaps.values() if s < g.size):.4f}"
+        for s in range(steps)))
+    return max(float((g / np.abs(np.float32(ref[i]))).max())
+               for i, g in gaps.items())
+
+
+def log_remat_peaks(setting: str, peaks: dict) -> None:
+    """Log ``lm_peaks``' readings with remat (``peaks[True]``) against
+    without (``peaks[False]``)."""
+    for name, what in (("held", "held from forward to backward"),
+                       ("gradient", "gradient peak"),
+                       ("pool step", "pool step peak")):
+        (pt, dt), (pf, df) = peaks[True][name], peaks[False][name]
+        log(f"[train-lm] {setting} {what}: {pt / 1e9:.3f} GB with remat "
+            f"({dt / 1e9:.3f} above the pool), {pf / 1e9:.3f} GB without "
+            f"({df / 1e9:.3f}); ratio {pt / pf:.3f} ({dt / df:.3f} above "
+            f"the pool)")
+    log(f"[train-lm] {setting}: left by a pool step for the garbage "
+        f"collector {peaks[True]['garbage'] / 1e9:.3f} GB with remat, "
+        f"{peaks[False]['garbage'] / 1e9:.3f} without")
+
+
+def train_lm(record: dict) -> None:
+    """``run_sweep`` over full-width StableLM-2 (4 layers) on the card:
+    auto_nppn picks the pack factor from measured bytes, 8 tasks of skewed
+    budgets train as lanes of one refilled pool through B3. Sets
+    ``record["launches_train_lm"]`` from the sweep's run."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.faults import FaultPolicy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.sweep import SweepTask, run_sweep
+    from repro_torch.models import ParallelCtx, build_model
+    full = configs.get("stablelm-1.6b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LM_LAYERS)
+    n, n_full = cfg.param_count(), full.param_count()
+    log(f"[train-lm] {cfg.name} at its published width: d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff} {cfg.mlp_type}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, remat="
+        f"{cfg.remat}; depth cut from {full.num_layers} to {cfg.num_layers} "
+        f"layers ({n / 1e6:.1f} M params, {16 * n / 1e9:.2f} GB of f32 "
+        f"params, grads and AdamW moments a lane; {16 * n_full / 1e9:.1f} "
+        f"GB at full depth)")
+    bf = lm_batch_fn(cfg, TRAIN_LM_SEQ, TRAIN_LM_BATCH)
+    budgets = TRAIN_LM_BUDGETS
+
+    def tasks():
+        return [SweepTask(id=i, lr=lr, seed=i, steps=b)
+                for i, (lr, b) in enumerate(zip(TRAIN_LM_LRS, budgets))]
+    total = torch.cuda.mem_get_info()[1]
+    budget = TRAIN_LM_HBM_FRACTION * total
+    model = build_model(cfg, device="cuda")
+    policy = FaultPolicy(oom_backoff=False)   # a pool failure fails the run
+
+    # the main path: counts set to 0 just before the sweep, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sweep(model, tasks(), batch_fn=bf, steps=max(budgets),
+                    hbm_budget=budget, policy=policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    by_body = dict(fa.flash_attention_cuda.launches_by_body)
+    b3 = launches["flash_attention_fwd"]
+    record["launches_train_lm"] = b3
+    record["launches_train_lm_by_body"] = by_body
+    d = res.decision
+    p1 = d.profile_single.resident_bytes
+    slope = (d.profile.resident_bytes - p1) / max(1, d.nppn_per_chip - 1)
+    log(f"[train-lm] auto_nppn, hbm_budget {budget / 1e9:.2f} GB "
+        f"({TRAIN_LM_HBM_FRACTION:.0%} of {total / 1e9:.2f} GB): bytes(1) "
+        f"{p1 / 1e9:.3f} GB measured (arguments "
+        f"{d.profile_single.argument_bytes / 1e9:.3f}, temporaries "
+        f"{d.profile_single.temp_bytes / 1e9:.3f}, outputs "
+        f"{d.profile_single.output_bytes / 1e9:.3f}), "
+        f"{slope / 1e9:.3f} GB a further lane; pack factor "
+        f"{d.nppn_per_chip} ({d.reason}); probes run {list(d.measured)}, "
+        f"predicted {list(d.predicted)}")
+    probe_steps = len(d.measured)
+    want = (res.global_steps + probe_steps) * 2 * cfg.num_layers
+    log(f"[train-lm] 8 tasks, lr {TRAIN_LM_LRS[0]:.0e}..{TRAIN_LM_LRS[-1]:.0e}"
+        f", budgets {list(budgets)} (Σ {sum(budgets)}), batch "
+        f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}: wall {wall:.2f} s, pack "
+        f"{res.pack_factor}, global_steps {res.global_steps}, lane_steps "
+        f"{res.lane_steps}, refills {res.refills}, n_traces {res.n_traces}, "
+        f"backoffs {res.backoffs}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{launches}; flash_attention by body {by_body} against "
+        f"(global_steps {res.global_steps} + probe steps {probe_steps}) x 2 "
+        f"x {cfg.num_layers} layers = {want}")
+    log(f"[train-lm] first/last loss per task: " + ", ".join(
+        f"{i}: {v[0]:.4f}/{v[-1]:.4f}" for i, v in res.losses.items()))
+    if res.backoffs or res.n_traces != 1 or res.lane_steps != sum(budgets):
+        raise AssertionError(f"sweep counters: backoffs {res.backoffs}, "
+                             f"n_traces {res.n_traces}, lane_steps "
+                             f"{res.lane_steps}")
+    if [len(res.losses[i]) for i in range(8)] != list(budgets) or not all(
+            np.isfinite(v).all() for v in res.losses.values()):
+        raise AssertionError("per-task losses: wrong counts or not finite")
+    if b3 != want or by_body["wgmma"] != b3:
+        raise AssertionError(f"flash_attention launched {b3} times "
+                             f"({by_body}), want {want} on the wgmma body")
+
+    # the same sweep through sdpa_chunked, at the same pack factor, and
+    # its rounding-only twin: sdpa_chunked with P·V in bf16 (as the
+    # kernel's wgmma body rounds P), the same function rounded otherwise
+    def chunked_sweep(score_bf16: bool):
+        reset_launches()
+        r = run_sweep(build_model(cfg, ParallelCtx(
+            attn_impl="chunked", score_bf16=score_bf16), device="cuda"),
+            tasks(), batch_fn=bf, steps=max(budgets),
+            max_pack=res.pack_factor, policy=policy)
+        if read_launches()["flash_attention_fwd"]:
+            raise AssertionError("a chunked sweep launched B3")
+        return r
+    res_c, res_t = chunked_sweep(False), chunked_sweep(True)
+    first = lambda r: {i: v[:1] for i, v in r.losses.items()}
+    step0 = dict(rtol=TRAIN_LM_LOSS_RTOL, atol=0.0)
+    gap0 = _compare_losses("step-0 losses, B3 vs sdpa_chunked", first(res),
+                           first(res_c), tol=step0, phase="train-lm")
+    _compare_losses("step-0 losses, sdpa_chunked P·V bf16 vs f32",
+                    first(res_t), first(res_c), tol=step0, phase="train-lm")
+    gap = _compare_losses("per-task losses, B3 vs sdpa_chunked", res.losses,
+                          res_c.losses, tol=dict(rtol=TRAIN_LM_TRAJ_RTOL,
+                                                 atol=0.0),
+                          phase="train-lm")
+    twin = log_loss_gaps("sdpa_chunked P·V bf16 - f32 (rounding only)",
+                         res_t.losses, res_c.losses)
+    log_loss_gaps("B3 - sdpa_chunked", res.losses, res_c.losses)
+    record["train_lm_loss_gap"] = {"step0": gap0, "all": gap,
+                                   "rounding_only": twin}
+
+    # what remat holds from forward to backward, and the peaks of the
+    # gradient and of one pool step with remat on and off: (1) at the
+    # sweep's pack factor, or one lane fewer where the step with remat
+    # already takes more than 3/4 of the card; (2) one lane of
+    # TRAIN_LM_REMAT_TOKENS tokens, where block activations set the peaks
+    k = res.pack_factor
+    peaks = {True: lm_peaks(model, k, bf)}
+    if k > 1 and peaks[True]["pool step"][0] > 0.75 * total:
+        k -= 1
+        peaks[True] = lm_peaks(model, k, bf)
+    no_remat = build_model(dataclasses.replace(cfg, remat=False),
+                           device="cuda")
+    peaks[False] = lm_peaks(no_remat, k, bf)
+    log_remat_peaks(f"{k}-lane, {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens a "
+                    f"lane", peaks)
+    long_bf = lm_batch_fn(cfg, TRAIN_LM_SEQ,
+                          TRAIN_LM_REMAT_TOKENS // TRAIN_LM_SEQ)
+    long = {True: lm_peaks(model, 1, long_bf),
+            False: lm_peaks(no_remat, 1, long_bf)}
+    log_remat_peaks(f"1-lane, {TRAIN_LM_REMAT_TOKENS // TRAIN_LM_SEQ} x "
+                    f"{TRAIN_LM_SEQ} tokens", long)
+    record["train_lm_remat_peaks"] = {
+        name: {n: [got[r][n][0] for r in (True, False)]
+               for n in ("held", "gradient", "pool step")}
+        for name, got in ((f"{k}_lanes", peaks), ("1_lane_long", long))}
+    for what, got in (("held", peaks), ("gradient", peaks), ("held", long),
+                      ("gradient", long), ("pool step", long)):
+        if not got[True][what][1] < got[False][what][1]:
+            raise AssertionError(f"remat did not lower the {what} bytes")
+    if any(p[r]["garbage"] for p in (peaks, long) for r in p):
+        raise AssertionError("a pool step left tensors in a reference "
+                             "cycle")
+
+    # where the time goes in one full-width pool step
+    k = res.pack_factor
+    pool, batch = lm_pool(model, k, bf)
+    (wall_ms, by_name), = profile_calls(
+        ((f"{cfg.name} x{cfg.num_layers} layers, {k}-lane pool step",
+          lambda: pool.step(batch)),))
+    busy = sum(ms for ms, _ in by_name.values())
+    kinds: dict = {}
+    for name, (ms, n) in by_name.items():
+        kind = kernel_kind(name)
+        kinds[kind] = tuple(a + b for a, b in zip(kinds.get(kind, (0, 0)),
+                                                  (ms, n)))
+    log("[profile] by kind: " + ", ".join(
+        f"{kind} {ms:.2f} ms ({ms / busy:.1%}, x{n})" for kind, (ms, n) in
+        sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    fa_ms, fa_n = map(sum, zip(*[v for name, v in by_name.items()
+                                 if "fa_fwd" in name] or [(0.0, 0)]))
+    fa_bound, fa_by = attention_bound_ms(
+        k * TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_SEQ, cfg.num_heads,
+        cfg.num_kv_heads, cfg.resolved_head_dim, True, 0, torch.bfloat16)
+    log(f"[profile] B3 in that step: {fa_ms:.3f} ms in {fa_n} launches, "
+        f"{fa_ms / busy:.1%} of the kernels' time, "
+        f"{fa_ms / max(fa_n, 1):.4f} ms a launch at "
+        f"({k * TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}, {cfg.num_heads}, "
+        f"{cfg.resolved_head_dim}) bf16 causal, bound {fa_bound:.4f} ms "
+        f"({fa_by})")
+    record["train_lm_device_ms"] = fa_ms / max(fa_n, 1)
+    record["train_lm_bound_ms"] = fa_bound
+    del pool, batch
+    train_lm_small()
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -1796,6 +2263,8 @@ def main() -> int:
     lenet_pool, lenet_batch = train_lenet()
     kernel_args = train_kernel(records[1])
     profile_training(lenet_pool, lenet_batch, kernel_args)
+    del lenet_pool, lenet_batch, kernel_args
+    train_lm(records[0])
     log(f"[done] {time.perf_counter() - t0:.1f} s, training phases "
         f"{time.perf_counter() - t1:.1f} s")
     print(card)

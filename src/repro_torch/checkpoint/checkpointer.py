@@ -149,11 +149,11 @@ class Checkpointer:
         # snapshot off the device before the caller's tensors move on
         tree = _unflatten(tree, [torch.as_tensor(x).detach().to(
             "cpu", copy=True) for _, x in _flatten(tree)])
+        self.wait()     # a pending save may write the same step
         if blocking:
             save_checkpoint(self.directory, tree, step, extra)
             self._gc()
             return
-        self.wait()
         self._thread = threading.Thread(
             target=lambda: (save_checkpoint(self.directory, tree, step, extra),
                             self._gc()),

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.checkpoint import checkpointer as ck
 from repro_torch.core import packing
+from repro_torch.core.repack import RepackController
 
 
 class PoolStepError(RuntimeError):
@@ -311,8 +312,8 @@ class RefillExecutor:
     ``decide(global_step, capacity, queue_len, live) -> new capacity or
     None``. When it decides on a new capacity the executor drains every
     lane in process, swaps ``self.pool`` for ``pool.resized(new_capacity)``
-    and refills between two masked steps. The reference's ``RepackPolicy``
-    (wrapped in a controller) waits for the port of ``core/repack.py``.
+    and refills between two masked steps. A bare ``repack.RepackPolicy``
+    is wrapped in a private ``repack.RepackController``.
 
     Speculative stragglers: with ``speculative`` set and a
     ``stragglers_fn`` naming suspect lanes, a flagged lane's task is
@@ -349,11 +350,9 @@ class RefillExecutor:
         self.speculative = speculative
         self.stragglers_fn = stragglers_fn
         if repack_policy is not None and not hasattr(repack_policy, "decide"):
-            raise NotImplementedError(
-                "a bare RepackPolicy needs core/repack.py's RepackController, "
-                "which is not ported yet (ROADMAP A.4); pass an object with "
-                "observe() and decide()")
-        self.repack = repack_policy
+            repack_policy = RepackController(repack_policy)
+        self.repack = repack_policy     # repack.RepackController (observe/
+                                        # decide) — online elastic resize
         self.record_history = record_history
         self.history: List[Tuple[int, int, int]] = []
         self.snapshot: Optional[PoolSnapshot] = None

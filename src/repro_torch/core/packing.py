@@ -59,6 +59,20 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
+    """The inverse of ``tree_leaves``: ``leaves`` put back into the dict
+    structure of ``like``. (No recursive closure: its reference cycle would
+    keep the leaves alive until the garbage collector runs.)"""
+    return _fill(like, iter(leaves))
+
+
+def _fill(like: Any, it) -> Any:
+    if isinstance(like, dict):
+        out = {k: _fill(like[k], it) for k in sorted(like)}
+        return {k: out[k] for k in like}
+    return next(it)
+
+
 def stack_trees(trees: Sequence[Any], axis: int = 0) -> Any:
     """Stack a list of identical-structure trees on a new axis."""
     return tree_map(lambda *xs: torch.stack([torch.as_tensor(x) for x in xs],
@@ -109,11 +123,26 @@ def masked_step(step_fn: Callable) -> Callable:
     """
     def step(params, opt_state, batch, hparams, active):
         new_p, new_o, metrics = step_fn(params, opt_state, batch, hparams)
-        keep = lambda new, old: torch.where(active, new, old)
-        return (tree_map(keep, new_p, params),
-                tree_map(keep, new_o, opt_state),
+        # the stepped trees as lists of leaves: _keep_active drops each
+        # stepped leaf once its selected copy exists
+        new_p, new_o = tree_leaves(new_p), tree_leaves(new_o)
+        return (_keep_active(active, new_p, params),
+                _keep_active(active, new_o, opt_state),
                 metrics)
     return step
+
+
+def _keep_active(active, new: list, old: Any) -> Any:
+    """``torch.where(active, new, old)`` leaf by leaf, ``new`` the leaves
+    of a tree shaped as ``old`` in ``tree_leaves`` order. Each entry of
+    ``new`` is set to None once its selected copy exists, so the stepped
+    leaf is freed then: a pool of a model's size would otherwise hold the
+    old state, the stepped state and the selected state at once."""
+    out = []
+    for i, o in enumerate(tree_leaves(old)):
+        out.append(torch.where(active, new[i], o))
+        new[i] = None
+    return tree_unflatten(old, out)
 
 
 def _lane_mask(active, like: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ The device of the tensors picks the path: a CPU tensor takes the kernel's
 plain PyTorch version, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 recomputes through ``models.attention.sdpa_chunked``, as the reference's
-custom_vjp does (there is no backward kernel in either package); it runs
+custom_vjp does (there is no backward kernel in either package; the port's
+has a first derivative only); it runs
 under ``torch.func.grad`` and ``torch.func.vmap``, and a vmapped call makes
 one kernel launch with the vmapped axis folded into the batch axis. ``ssd``
 has no backward in either package.
@@ -57,7 +58,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         from repro_torch.models.attention import sdpa_chunked
-        q, k, v, active = ctx.saved_tensors
+        # from detached inputs, as models.transformer._Recompute does: the
+        # recompute is not recorded for a second derivative (which
+        # torch.func.grad would keep alive to the end of the backward)
+        q, k, v = (t.detach() for t in ctx.saved_tensors[:3])
+        active = ctx.saved_tensors[3]
 
         def attend(q, k, v):
             out = sdpa_chunked(q, k, v, causal=ctx.causal, window=ctx.window)
@@ -65,7 +70,7 @@ class _FlashAttention(torch.autograd.Function):
 
         # torch.func.vjp composes with the transforms the forward ran under
         _, vjp = torch.func.vjp(attend, q, k, v)
-        return (*vjp(g), None, None, None)
+        return (*vjp(g.detach()), None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, active, causal, window):

@@ -1,2 +1,3 @@
-"""Entry points: the continuous-batching ``BatchServer`` (port of
-``repro.launch.serve``)."""
+"""Entry points (port of ``repro.launch``): the continuous-batching
+``BatchServer`` (``serve``), the training step and ``Trainer`` (``train``),
+and the parametric sweep ``run_sweep`` (``sweep``)."""

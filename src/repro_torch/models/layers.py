@@ -78,3 +78,20 @@ def mlp(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ params["w_up"].to(cdt), approximate="tanh")
     return h @ params["w_down"].to(cdt)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token NLL in f32; labels == ignore_id are masked.
+
+    The reference takes the gold logit with a one-hot reduction, which
+    keeps a tensor-parallel vocab dim sharded under GSPMD. The port gathers
+    it (``torch.take_along_dim``): the same value exactly, without a
+    (B, S, V) f32 one-hot as large as the logits themselves."""
+    logits = logits.float()
+    mask = (labels != ignore_id).float()
+    safe = labels.clamp_min(0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

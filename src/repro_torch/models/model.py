@@ -2,6 +2,7 @@
 ``repro.models.model``; the other families raise ``NotImplementedError``).
 
 Batch layouts (integer tensors):
+  train    {"tokens": (B,S), "labels": (B,S)}
   prefill  {"tokens": (B,S)}
   decode   {"tokens": (B,1), "pos": (B,)}
 
@@ -100,6 +101,20 @@ class Model:
             positions=positions, window=self.window, causal=True,
             caches=caches, pctx=self.pctx)
 
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """(total, {"loss", "ce", "aux"}): mean token cross-entropy over
+        the labels. ``aux`` is the MoE router loss of the reference, 0 for
+        the dense and ssm families."""
+        h, positions = self._embed_in(params, batch)
+        h, _ = self._backbone(params, h, positions)
+        logits = self._head(params, h)
+        ce = layers.cross_entropy_loss(logits, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        coef = self.cfg.moe.router_aux_coef if self.cfg.moe else 0.0
+        total = ce + coef * aux
+        return total, {"loss": total, "ce": ce, "aux": aux}
+
     # ------------------------------------------------------------- serving
     def make_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
         """Decode cache, every leaf stacked on a leading L axis."""
@@ -135,3 +150,7 @@ class Model:
         logits = self._head(params, h)
         return logits[:, 0], cache
 
+
+def build_model(cfg: ModelConfig, pctx: Optional[ParallelCtx] = None,
+                window: Optional[int] = None, device=None) -> Model:
+    return Model(cfg, pctx=pctx, window=window, device=device)

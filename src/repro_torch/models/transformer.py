@@ -5,6 +5,15 @@ Per-layer params and caches are stacked on a leading L axis, as in the
 reference; its ``lax.scan`` over that axis becomes a Python loop that takes
 views of layer l (``lane_slice``), so a cache written in place by a layer
 lands in the stacked buffer.
+
+Remat (``cfg.remat``, the reference's ``jax.checkpoint`` per scanned block)
+is ``_Recompute``: an autograd Function that runs a block, keeps only its
+inputs, and runs it again inside the backward. It is built the way
+``torch.func`` takes a Function (``setup_context`` and a generated vmap
+rule), so it works in a lane pool's ``vmap(grad(...))``;
+``torch.utils.checkpoint`` does not (saved-tensor hooks, or no
+``setup_context``). It applies only where autograd needs the block's
+result, so every no-grad path (serving) runs as before.
 """
 from __future__ import annotations
 
@@ -14,7 +23,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.packing import lane_slice, stack_trees, tree_map
+from repro_torch.core.packing import (lane_slice, stack_trees, tree_leaves,
+                                     tree_map, tree_unflatten)
 from repro_torch.models import attention, layers, ssm
 
 
@@ -109,14 +119,68 @@ def _depth(tree) -> int:
     return tree.shape[0]
 
 
+class _Recompute(torch.autograd.Function):
+    """``fn(positions, *tensors)`` whose backward recomputes ``fn`` from its
+    saved inputs (``torch.func.vjp`` over ``tensors``) instead of keeping
+    its intermediates. ``positions`` (integer) is an input but gets no
+    gradient; ``fn`` closes over every non-tensor argument. A tensor made
+    inside the transforms may not be closed over: the Function's forward
+    runs a level below them.
+
+    The backward recomputes from detached inputs: ``torch.func.grad``
+    differentiates with ``create_graph=True``, so a recompute from the
+    saved tensors themselves would be recorded for a second derivative,
+    and every block's recompute would stay alive until the whole backward
+    ends, which is what remat is there to avoid. So the Function has a
+    first derivative only."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, positions, *tensors):
+        return fn(positions, *tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        positions, *tensors = (t.detach() for t in ctx.saved_tensors)
+        _, vjp = torch.func.vjp(lambda *t: ctx.fn(positions, *t), *tensors)
+        return (None, None, *vjp(g.detach()))
+
+
+def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
+                 **kw):
+    """``block_fwd``'s x under ``_Recompute``: the block's params ride as a
+    flat tuple of tensors, window, impl and the rest in the closure."""
+    def fn(positions, x, *leaves):
+        out, _ = block_fwd(tree_unflatten(p, leaves), x, cfg, kind,
+                           positions=positions, **kw)
+        return out
+    return _Recompute.apply(fn, positions, x, *tree_leaves(p))
+
+
 def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
               positions, window: int = 0, causal: bool = True,
               caches: Any = None, pctx: ParallelCtx):
     """Run the L stacked layers in order. Returns (x, caches); ``caches``
-    (stacked on L) is updated in place."""
+    (stacked on L) is updated in place. With ``cfg.remat`` and no caches, a
+    block whose result autograd needs runs under ``_Recompute``; a Mamba2
+    block there takes the scan autograd takes ("chunked", as the reference's
+    model always does) in its forward too, where grad mode is off."""
+    remat = (cfg.remat and caches is None
+             and ssm.needs_grad(x, *tree_leaves(params_stack)))
+    if remat and kind == "ssm" and pctx.attn_impl is None:
+        pctx = dataclasses.replace(pctx,
+                                   attn_impl=ssm.scan_impl(x.device, True))
+    kw = dict(positions=positions, window=window, causal=causal, pctx=pctx)
     for i in range(_depth(params_stack)):
+        if remat:
+            x = _remat_block(lane_slice(params_stack, i), x, cfg, kind, **kw)
+            continue
         cache_l = None if caches is None else lane_slice(caches, i)
         x, _ = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
-                         positions=positions, window=window, causal=causal,
-                         cache=cache_l, pctx=pctx)
+                         cache=cache_l, **kw)
     return x, caches

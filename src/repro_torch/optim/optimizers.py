@@ -58,16 +58,25 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     def init(params):
         zeros = lambda p: torch.zeros_like(p, dtype=moment_dtype)
         return {"mu": _map(zeros, params), "nu": _map(zeros, params),
-                "count": torch.zeros((), dtype=torch.int32)}
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=_leaves(params)[0].device)}
 
     def update(grads, state, params, lr):
+        # clipping scales each gradient leaf where it is used: the same
+        # values as ``clip_by_global_norm`` first, without a second copy
+        # of every gradient alive beside the new moments
+        scale = None
         if grad_clip:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
+            norm = global_norm(grads)
+            scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-9),
+                                max=1.0)
         count = state["count"] + 1
         b1c = 1 - b1 ** count.float()
         b2c = 1 - b2 ** count.float()
 
         def upd(g, m, n, p):
+            if scale is not None:
+                g = g * scale.to(g.dtype)
             g = g.float()
             m32 = b1 * m.float() + (1 - b1) * g
             n32 = b2 * n.float() + (1 - b2) * torch.square(g)

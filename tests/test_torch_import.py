@@ -1,5 +1,5 @@
 """The port stands alone: importing it loads no JAX and nothing of ``repro``,
-no file of it (nor ``chip_smoke.py``) imports them or calls a library
+no file of it (nor the ``chip_*.py`` scripts) imports them or calls a library
 attention kernel, and a kernel's CUDA path computes nothing in PyTorch."""
 import ast
 import json
@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-CHECKED_FILES = PORT_FILES + ["chip_smoke.py"]
+CHECKED_FILES = PORT_FILES + ["chip_smoke.py", "chip_prefill_wall.py",
+                              "chip_pool_peak.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -37,17 +38,14 @@ def test_import_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 37   # configs, kernels, models, core, launch, optim,
+    assert out["n"] >= 45   # configs, kernels, models, core, launch, optim,
                             # data, checkpoint
     assert out["bad"] == []
 
 
-@pytest.mark.parametrize("module", ["repro_torch.models.ssm",
-                                    "repro_torch.kernels.ssd_scan",
-                                    "repro_torch.kernels.ops"])
-def test_ssm_slice_modules_load_no_jax(module):
-    """Each module of the SSM slice, imported alone in a fresh interpreter
-    (so no other import has pulled its dependencies in first)."""
+def _alone_loads_no_jax(module: str) -> None:
+    """Import ``module`` alone in a fresh interpreter (so no other import
+    has pulled its dependencies in first) and check what it loaded."""
     code = (f"import json, sys, {module}\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -58,6 +56,25 @@ def test_ssm_slice_modules_load_no_jax(module):
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.ssm",
+                                    "repro_torch.kernels.ssd_scan",
+                                    "repro_torch.kernels.ops"])
+def test_ssm_slice_modules_load_no_jax(module):
+    """Each module of the SSM slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.sweep", "repro_torch.launch.train",
+    "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+    "repro_torch.core.autotune", "repro_torch.core.repack",
+    "repro_torch.core.faults", "repro_torch.core.tenancy",
+    "repro_torch.core.monitor", "repro_torch.models.model"])
+def test_sweep_slice_modules_load_no_jax(module):
+    """Each module of the transformer-sweep slice, imported alone."""
+    _alone_loads_no_jax(module)
 
 
 @pytest.mark.parametrize("path", CHECKED_FILES)

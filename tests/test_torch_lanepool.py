@@ -2,7 +2,9 @@
 the port (masked-step semantics, detach/re-attach, build-once, refill,
 the three execution modes), one attach/detach schedule through both
 packages' pools, drain to a ``PoolSnapshot`` and rehydrate at another
-capacity, repacking through a policy object, and the checkpoint layout.
+capacity, repacking through a policy object, a ``RepackController`` and a
+bare ``RepackPolicy`` (tests/test_repack.py's executor cases), and the
+checkpoint layout.
 
 Where the reference asserts bit-identity inside one package, the port
 asserts it too (``torch.equal`` / ``assert_array_equal``). Across the two
@@ -26,6 +28,7 @@ from repro_torch.core import packing
 from repro_torch.core.lanepool import (LanePool, LaneTask, PoolSnapshot,
                                        PoolStepError, RefillExecutor,
                                        rehydrate, run_waves)
+from repro_torch.core.repack import RepackController, RepackPolicy
 from repro_torch.data.mnist import synthetic_mnist
 from repro_torch.models import lenet
 from tests.prop import given_cases
@@ -463,10 +466,43 @@ def test_repack_policy_object_resizes_bit_identically():
     assert policy.seen[0] == (1, 2, 2, 6)
 
 
-def test_bare_repack_policy_is_not_ported_yet():
+REPACK_BUDGETS = [3, 7, 4, 6, 2, 5, 8, 3, 5, 4]   # tests/test_repack.py
+
+
+def _repack_tasks(opt):
+    return [_lane_task(opt, i, b) for i, b in enumerate(REPACK_BUDGETS)]
+
+
+def test_executor_grow_and_shrink_bit_identical():
+    """tests/test_repack.py::test_executor_grow_and_shrink_bit_identical:
+    a RepackController resizes the pool mid-run; per-task losses are
+    bit-identical to a fixed pool's, and the traces sum over capacities."""
     opt, step = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        RefillExecutor(_pool(step, opt, 2), repack_policy=object())
+    want, _, _ = _run_collect(_repack_tasks(opt), _pool(step, opt, 2))
+    ctl = RepackController(RepackPolicy(
+        grow_occupancy=0.5, shrink_occupancy=0.3, cooldown_steps=2,
+        max_capacity=8), measure_bytes=lambda: 0)
+    got, stats, _ = _run_collect(_repack_tasks(opt), _pool(step, opt, 2),
+                                 repack_policy=ctl)
+    _assert_losses_equal(want, got)
+    assert stats.repacks >= 1
+    assert stats.capacity_trace == ctl.capacity_trace()
+    assert stats.n_traces == len({2} | {c for _, c in stats.capacity_trace})
+    assert stats.lane_steps == sum(REPACK_BUDGETS)
+
+
+def test_executor_accepts_bare_policy():
+    """tests/test_repack.py::test_executor_accepts_bare_policy: a bare
+    RepackPolicy is wrapped in a private RepackController."""
+    opt, step = _setup()
+    want, _, _ = _run_collect(_repack_tasks(opt), _pool(step, opt, 2))
+    got, stats, ex = _run_collect(
+        _repack_tasks(opt), _pool(step, opt, 2),
+        repack_policy=RepackPolicy(grow_occupancy=0.5, shrink_occupancy=0.0,
+                                   cooldown_steps=1, max_capacity=4))
+    _assert_losses_equal(want, got)
+    assert stats.repacks >= 1
+    assert isinstance(ex.repack, RepackController)
 
 
 def test_speculative_twin_finishes_once():
