@@ -69,7 +69,24 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    and of a pool step with and without remat, at the sweep's pack factor
    and at one lane of 8,192 tokens, [profile] one pool step; then
    on the reduced StableLM-2 a drain resumed at ``max_pack=2``, an
-   ``adaptive_pack`` sweep and the card's losses against the CPU's.
+   ``adaptive_pack`` sweep and the card's losses against the CPU's;
+8. the policy and durability layer on the paper's LLMapReduce use, a
+   parametric study scoring 10 prompts of 1,024 tokens (each item's mean
+   NLL) with full-width, full-depth StableLM-2 1.6B, B3's launches read
+   around each phase (all on the wgmma body): [mapreduce] ``llmapreduce``
+   packed on a 4-slot pool (3 pool steps, one step program, 3 × 24
+   launches) and slotted through ``TriplesScheduler`` (10 × 24), their
+   losses within 5e-3 of each other, ``reduce_fn``, each path's items/s
+   and a [profile] of both; [sched] ``TriplesScheduler`` under
+   ``Tenancy`` on one node of this card, lanes measured by
+   ``memory_per_lane``: a gang rejected by admission, tenant B preempting
+   A (cursor files through the ``Checkpointer``), A resuming without
+   re-running a task, results bit-equal to the slotted pass;
+   [controlplane] a ``ControlPlane`` run uncrashed, then crashed at a
+   middle record boundary and recovered: equal results, no decision-log
+   difference, at most one task run twice; [replay] the port's
+   ``compare_modes`` over the six committed traces against
+   ``BENCH_HISTORY.json``'s last entry, every field exactly.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -197,6 +214,24 @@ TRAIN_LM_TRAJ_RTOL = 5e-2
 # kernel's f32 body against sdpa_chunked, other GEMM orders): the [small]
 # phase's logit bound
 XDEV_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# phase 8: the parametric study scores 10 prompts of 1,024 tokens (numpy
+# seed 0) on full-width, full-depth StableLM-2 1.6B over a triples placement
+# of 4 slots
+STUDY_ITEMS, STUDY_SEQ = 10, 1024
+STUDY_TRIPLES = (1, 4, 1)
+# the throughput of each path is timed on a longer study of 40 prompts (10
+# pool steps packed; 0.8 and 2.2 s of wall on an H100), the first 10 of
+# them the gated items: 10 items are 0.2-0.6 s, where the host's noise
+# moved the packed/slotted ratio from 1.5x to 2.6x between calls
+STUDY_TIMING_ITEMS = 40
+# per-item losses packed (4 lanes folded into B3's batch) against slotted
+# (batch 1): on an H100 they agreed within 7.9e-8 relative; the items'
+# losses (all near log V) differ from each other by up to 5.1e-3 relative,
+# so the limit sits far under that spread and 100x over the reading, room
+# for cuBLAS to pick another algorithm at another batch (ROADMAP C3); each
+# packed loss must also lie nearest its own item's slotted loss
+STUDY_LOSS_RTOL = 1e-5
 
 
 def log(*a):
@@ -451,6 +486,8 @@ def check_flash_attention() -> dict:
         ("d16_causal", 2, 300, 300, 4, 2, 16, bf16, True, 0),
         # [train-lm]'s pool step: 2 lanes of batch 2 folded into B
         ("train_lm", 4, 512, 512, 32, 32, 64, bf16, True, 0),
+        # [mapreduce]'s packed study: 4 lanes of (1, 1024) folded into B
+        ("study_packed", 4, 1024, 1024, 32, 32, 64, bf16, True, 0),
     ]
     errs = {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window in cases:
@@ -1491,7 +1528,8 @@ def profile_calls(calls) -> list:
         busy_ms = sum(ms for ms, _ in by_name.values())
         launches = sum(n for _, n in by_name.values())
         log(f"[profile] {label}: wall {wall_ms:.2f} ms (median of 3, "
-            f"unprofiled), kernels {busy_ms:.2f} ms in {launches} "
+            f"{min(walls[1:]):.2f}-{max(walls[1:]):.2f}, unprofiled), "
+            f"kernels {busy_ms:.2f} ms in {launches} "
             f"launches, device idle {1 - busy_ms / wall_ms:.3f}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
         for name, (ms, n) in top:
@@ -1952,6 +1990,20 @@ def kernel_kind(name: str) -> str:
     return "elementwise"
 
 
+def log_by_kind(by_name: dict) -> float:
+    """Logs a profile's kernel time by ``kernel_kind``; returns the total."""
+    busy = sum(ms for ms, _ in by_name.values())
+    kinds: dict = {}
+    for name, (ms, n) in by_name.items():
+        kind = kernel_kind(name)
+        kinds[kind] = tuple(a + b for a, b in zip(kinds.get(kind, (0, 0)),
+                                                  (ms, n)))
+    log("[profile] by kind: " + ", ".join(
+        f"{kind} {ms:.2f} ms ({ms / busy:.1%}, x{n})" for kind, (ms, n) in
+        sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    return busy
+
+
 def cpu_drawn_model(cfg, device):
     """A ``models.model.Model`` whose ``init`` draws on the CPU from the
     generator's seed and moves the params to the model's device, so a card
@@ -2201,15 +2253,7 @@ def train_lm(record: dict) -> None:
     (wall_ms, by_name), = profile_calls(
         ((f"{cfg.name} x{cfg.num_layers} layers, {k}-lane pool step",
           lambda: pool.step(batch)),))
-    busy = sum(ms for ms, _ in by_name.values())
-    kinds: dict = {}
-    for name, (ms, n) in by_name.items():
-        kind = kernel_kind(name)
-        kinds[kind] = tuple(a + b for a, b in zip(kinds.get(kind, (0, 0)),
-                                                  (ms, n)))
-    log("[profile] by kind: " + ", ".join(
-        f"{kind} {ms:.2f} ms ({ms / busy:.1%}, x{n})" for kind, (ms, n) in
-        sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    busy = log_by_kind(by_name)
     fa_ms, fa_n = map(sum, zip(*[v for name, v in by_name.items()
                                  if "fa_fwd" in name] or [(0.0, 0)]))
     fa_bound, fa_by = attention_bound_ms(
@@ -2225,6 +2269,402 @@ def train_lm(record: dict) -> None:
     record["train_lm_bound_ms"] = fa_bound
     del pool, batch
     train_lm_small()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the policy and durability layer on a parametric study
+# ---------------------------------------------------------------------------
+
+def study_setup(cfg) -> dict:
+    """The paper's LLMapReduce use: score STUDY_ITEMS prompts of STUDY_SEQ
+    tokens (numpy seed 0) with one model (torch seed 0), each item's
+    result its mean token NLL, ``Model.loss(params, batch)[0]``. One set of
+    parameters serves the four phases; ``timing_items`` (the gated items
+    first) time the throughput."""
+    import torch
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (STUDY_TIMING_ITEMS, 1, STUDY_SEQ + 1),
+        dtype=np.int64)).cuda()
+    timing_items = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+
+    def loss(p, batch):
+        with torch.no_grad():
+            return model.loss(p, batch)[0]
+    log(f"[mapreduce] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params "
+        f"{cfg.param_dtype}, {cfg.compute_dtype} compute; {STUDY_ITEMS} "
+        f"prompts of {STUDY_SEQ} tokens ({STUDY_TIMING_ITEMS} to time); init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"cfg": cfg, "model": model, "params": params,
+            "items": timing_items[:STUDY_ITEMS], "timing_items": timing_items,
+            "loss": loss, "score": lambda batch: loss(params, batch),
+            "hbm": float(torch.cuda.mem_get_info(model.device)[1])}
+
+
+def b3_launches(phase: str, want: int) -> int:
+    """B3's launches since the last ``reset_launches``: ``want`` of them,
+    every one on the tensor-core (wgmma) body."""
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention_cuda.launches
+    by_body = dict(fa.flash_attention_cuda.launches_by_body)
+    log(f"[{phase}] flash_attention launches {got} (by body {by_body}), "
+        f"want {want}")
+    if got != want or by_body.get("wgmma") != got:
+        raise AssertionError(f"[{phase}] flash_attention launched {got} "
+                             f"times ({by_body}), want {want} on wgmma")
+    return got
+
+
+def study_mapreduce(record: dict, study: dict) -> list:
+    """``llmapreduce`` packed (the items as lanes of one refilled pool,
+    ``trip.total_slots`` of them, B3 once a layer a pool step with the
+    lanes folded into its batch) and slotted (one item at a time through
+    ``TriplesScheduler``), a profile of each, then each path's throughput
+    on the longer timing study. Returns the slotted per-item losses."""
+    import functools
+    import operator
+    import torch
+    from repro_torch.core.mapreduce import llmapreduce
+    from repro_torch.core.triples import Triples
+    cfg, items, score = study["cfg"], study["items"], study["score"]
+    n, L = len(items), cfg.num_layers
+    trip = Triples(*STUDY_TRIPLES)
+    score(items[0])                     # warm: not part of either timing
+    torch.cuda.synchronize()
+    steps = -(-n // trip.total_slots)
+
+    reset_launches()                    # the main path
+    t0 = time.perf_counter()
+    lanes, stats = llmapreduce(score, items, trip=trip, mode="packed",
+                               return_stats=True)
+    packed = [float(v) for v in lanes]
+    packed_s = time.perf_counter() - t0
+    record["launches_mapreduce_packed"] = b3_launches("mapreduce",
+                                                      steps * L)
+    log(f"[mapreduce] packed, {trip}: wall {packed_s:.3f} s, "
+        f"{n / packed_s:.2f} items/s; lane_steps {stats.lane_steps}, "
+        f"global_steps {stats.global_steps}, n_traces {stats.n_traces}")
+    if (stats.lane_steps, stats.global_steps, stats.n_traces) != (
+            n, steps, 1):
+        raise AssertionError(f"packed pool counters {stats}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    slotted = llmapreduce(lambda b: float(score(b)), items, trip=trip,
+                          mode="slotted")
+    slotted_s = time.perf_counter() - t0
+    record["launches_mapreduce_slotted"] = b3_launches("mapreduce", n * L)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(packed, slotted))
+    spread = (max(slotted) - min(slotted)) / min(slotted)
+    nearest = [min(range(n), key=lambda j: abs(p - slotted[j]))
+               for p in packed]
+    log(f"[mapreduce] slotted: wall {slotted_s:.3f} s, "
+        f"{n / slotted_s:.2f} items/s; per-item losses "
+        f"{', '.join(f'{v:.4f}' for v in slotted)} (spread {spread:.3g} "
+        f"relative); packed vs slotted max relative gap {gap:.3g} (rtol "
+        f"{STUDY_LOSS_RTOL}), each packed loss nearest its own item: "
+        f"{nearest == list(range(n))}")
+    if not (np.isfinite(packed).all() and np.isfinite(slotted).all()
+            and gap <= STUDY_LOSS_RTOL and nearest == list(range(n))):
+        raise AssertionError(f"packed vs slotted losses: gap {gap}, "
+                             f"nearest slotted items {nearest}")
+
+    total = float(llmapreduce(score, items, trip=trip,
+                              reduce_fn=operator.add))
+    want = float(functools.reduce(operator.add, lanes))
+    log(f"[mapreduce] reduce_fn=operator.add, packed: {total!r}; the fold "
+        f"of the packed list: {want!r}")
+    if not abs(total - want) <= STUDY_LOSS_RTOL * abs(want):
+        raise AssertionError("reduce_fn: the sum is not the list's sum")
+    record["mapreduce"] = {"items": n, "triples": list(STUDY_TRIPLES),
+                           "packed_s": packed_s, "slotted_s": slotted_s,
+                           "loss_gap": gap, "loss_spread": spread}
+    # each whole path on the gated items: wall (median of 3), kernels,
+    # idle share
+    paths = {"packed": lambda its: llmapreduce(score, its, trip=trip),
+             "slotted": lambda its: llmapreduce(
+                 lambda b: float(score(b)), its, trip=trip, mode="slotted")}
+    for (wall_ms, by_name), path in zip(profile_calls(
+            [(f"llmapreduce {path}, {n} items", lambda f=f: f(items))
+             for path, f in paths.items()]), paths):
+        busy = log_by_kind(by_name)
+        record["mapreduce"][path] = {
+            "wall_ms": wall_ms, "kernel_ms": busy, "idle": 1 - busy / wall_ms}
+    # throughput on the timing study, the two paths taking turns so that
+    # both see the same host: three rounds, unprofiled
+    timing = study["timing_items"]
+    m = len(timing)
+    walls = {path: [] for path in paths}
+    for _ in range(3):
+        for path, f in paths.items():
+            t0 = time.perf_counter()
+            f(timing)
+            torch.cuda.synchronize()
+            walls[path].append(time.perf_counter() - t0)
+    for path, w in walls.items():
+        record["mapreduce"][path].update(
+            timing_items=m, timing_walls_s=w,
+            items_per_s=m / float(np.median(w)))
+    p, q = (float(np.median(walls[k])) for k in paths)
+    ratios = [b / a for a, b in zip(walls["packed"], walls["slotted"])]
+    record["mapreduce"]["throughput_ratio"] = q / p
+    log(f"[mapreduce] {m} items, three rounds taking turns: packed walls "
+        f"{', '.join(f'{w:.3f}' for w in walls['packed'])} s "
+        f"({m / p:.2f} items/s, median), slotted "
+        f"{', '.join(f'{w:.3f}' for w in walls['slotted'])} s "
+        f"({m / q:.2f} items/s); packed/slotted {q / p:.2f}x (by round "
+        f"{', '.join(f'{r:.2f}' for r in ratios)})")
+    return slotted
+
+
+def study_sched(record: dict, study: dict, slotted: list) -> None:
+    """``TriplesScheduler`` under ``Tenancy`` on one node of one card:
+    tasks score one item each at batch 1; the lane footprint is measured
+    (``monitor.memory_per_lane``); tenant A's gang of every item is
+    admitted, a gang whose lane outgrows the card is rejected, and a gang
+    of tenant B preempts A (cursors through the ``Checkpointer``), after
+    which A resumes and runs only the tasks it had not completed."""
+    import tempfile
+    from repro_torch.checkpoint import load_extra
+    from repro_torch.core import monitor, tenancy
+    from repro_torch.core.scheduler import (ClusterState, Task, Tenancy,
+                                            TriplesScheduler)
+    from repro_torch.core.triples import NodeSpec, Triples
+    cfg, items, score = study["cfg"], study["items"], study["score"]
+    n, L = len(items), cfg.num_layers
+    bpl = monitor.memory_per_lane(study["loss"], study["params"], items[0])
+    node = NodeSpec(chips_per_node=1, hbm_per_chip=study["hbm"])
+    log(f"[sched] bytes_per_lane {bpl / 1e9:.3f} GB (memory_per_lane of the "
+        f"scoring step), node: 1 chip of {study['hbm'] / 1e9:.2f} GB")
+    executed = []
+
+    def tasks(tag, idx):
+        return [Task(id=k, fn=lambda ctx, tag=tag, i=i: executed.append(
+            (tag, i)) or float(score(items[i]))) for k, i in enumerate(idx)]
+    b_items = [0, 1]
+    with tempfile.TemporaryDirectory() as ck:
+        gauges = monitor.TenantGauges()
+        sched = TriplesScheduler(
+            ClusterState(1, node), checkpoint_dir=ck,
+            tenancy=Tenancy.create(
+                node_spec=node, gauges=gauges,
+                preemption=tenancy.PreemptionPolicy(wait_threshold=2)))
+        reset_launches()
+        t0 = time.perf_counter()
+        a = sched.submit("A", tasks("A", range(n)), Triples(1, 2, 1),
+                         bytes_per_lane=bpl)
+        big = sched.submit("C", tasks("C", [0]), Triples(1, 1, 1),
+                           bytes_per_lane=2 * study["hbm"])
+        b = sched.submit("B", tasks("B", b_items), Triples(1, 1, 1),
+                         bytes_per_lane=bpl)
+        done = sched.run_queued()
+        wall = time.perf_counter() - t0
+        launches = b3_launches("sched", (n + len(b_items)) * L)
+        gang_dir = os.path.join(ck, f"gang_{a.id}")
+        extra, step = load_extra(gang_dir)
+    kinds = [e.kind for e in sched.events]
+    log(f"[sched] wall {wall:.3f} s; A {a.state}, B {b.state}, C "
+        f"{big.state} ({big.reject_reason}); events: preempt "
+        f"{kinds.count('preempt')}, resume {kinds.count('resume')}; A's "
+        f"cursor at round {step}: {len(extra['completed'])} completed, "
+        f"{len(extra['remaining'])} remaining")
+    for line in gauges.table().splitlines():
+        log(f"[sched] {line}")
+    if big.state != "rejected" or a.id not in done or b.id not in done:
+        raise AssertionError("admission: the oversized gang was not "
+                             "rejected or a gang did not finish")
+    if done[a.id].failed or done[b.id].failed or \
+            done[a.id].preemptions != 1 or kinds.count("preempt") != 1:
+        raise AssertionError(f"A: failed {done[a.id].failed}, "
+                             f"preemptions {done[a.id].preemptions}")
+    if not (extra["gang_checkpoint"] and extra["user"] == "A"
+            and extra["completed"] and extra["remaining"]):
+        raise AssertionError(f"gang cursor file: {extra}")
+    if sorted(executed) != sorted([("A", i) for i in range(n)]
+                                  + [("B", i) for i in b_items]):
+        raise AssertionError(f"tasks executed other than once: {executed}")
+    got = [done[a.id].results[k] for k in range(n)]
+    if got != slotted or [done[b.id].results[k] for k in range(
+            len(b_items))] != [slotted[i] for i in b_items]:
+        raise AssertionError("scheduled losses are not bit-equal to the "
+                             "slotted pass")
+    record["launches_sched"] = launches
+    record["sched"] = {"bytes_per_lane": bpl, "wall_s": wall,
+                       "preemptions": 1, "cursor_round": step}
+
+
+def study_controlplane(record: dict, study: dict, slotted: list) -> None:
+    """A ``ControlPlane`` with the scoring task registered by name, run
+    once uncrashed, then crashed at a middle record boundary and restarted
+    (``ControlPlane(...).start()`` is recovery): the recovered results
+    equal the uncrashed ones, the two decision logs do not differ, and no
+    task ran more than once but the one in flight at the crash."""
+    import tempfile
+    from repro_torch.core import controlplane as cp
+    from repro_torch.core import eventlog
+    from repro_torch.core.faults import CrashHook, CrashInjected
+    from repro_torch.core.triples import NodeSpec, Triples
+    cfg, items, score = study["cfg"], study["items"], study["score"]
+    n, L = len(items), cfg.num_layers
+    node = NodeSpec(chips_per_node=1, hbm_per_chip=study["hbm"])
+    runs = []
+
+    def score_item(ctx, i):
+        runs.append(i)
+        return float(score(items[i]))
+    cp.register_task("study_score", score_item)
+
+    def drive(plane):
+        job = plane.submit("A", "study_score", job_key="study",
+                           trip=Triples(1, 2, 1), payloads=list(range(n)))
+        plane.run()
+        return job
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, crashed = os.path.join(tmp, "clean"), os.path.join(tmp, "crash")
+        reset_launches()
+        t0 = time.perf_counter()
+        plane = cp.ControlPlane(clean, n_nodes=1, node_spec=node).start()
+        want = dict(drive(plane).result.results)
+        digest = plane.state_digest()
+        plane.close()
+        clean_s = time.perf_counter() - t0
+        b3_launches("controlplane", n * L)
+        records = eventlog.EventLog(clean).replay()
+        k = len(records) // 2
+        runs.clear()
+        reset_launches()
+        t0 = time.perf_counter()
+        plane = cp.ControlPlane(crashed, n_nodes=1, node_spec=node,
+                                crash_hook=CrashHook(after=k))
+        try:
+            plane.start()
+            drive(plane)
+            raise AssertionError(f"no crash at record boundary {k}")
+        except CrashInjected:
+            pass
+        plane.close()
+        first = len(runs)
+        plane = cp.ControlPlane(crashed, n_nodes=1, node_spec=node).start()
+        got = dict(drive(plane).result.results)
+        recovered_digest = plane.state_digest()
+        plane.close()
+        crash_s = time.perf_counter() - t0
+        launches = b3_launches("controlplane", len(runs) * L)
+        diff = eventlog.diff_decision_logs(
+            eventlog.decision_view(records),
+            eventlog.decision_view(eventlog.EventLog(crashed).replay()))
+    log(f"[controlplane] uncrashed: {len(records)} records, {clean_s:.3f} s;"
+        f" crash at record boundary {k}: {first} task runs before it, "
+        f"{len(runs) - first} after recovery ({len(runs)} in all, at most "
+        f"{n + 1}), {crash_s:.3f} s; decision-log diff rows {len(diff)}")
+    if got != want or [want[i] for i in range(n)] != slotted:
+        raise AssertionError("recovered results differ from the uncrashed "
+                             "run's or from the slotted pass")
+    if diff or recovered_digest != digest or len(runs) > n + 1:
+        raise AssertionError(f"recovery: diff {diff}, {len(runs)} runs")
+    record["launches_controlplane"] = launches
+    record["controlplane"] = {"records": len(records), "crash_at": k,
+                              "task_runs": len(runs)}
+
+
+def study_replay(record: dict) -> None:
+    """The port's ``compare_modes`` over the six committed traces against
+    the last entry of ``BENCH_HISTORY.json``: every field, exactly."""
+    from repro_torch.core import simulate, traces
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    got = replay_quality(simulate, traces, root / "benchmarks" / "traces")
+    wall = time.perf_counter() - t0
+    with open(root / "BENCH_HISTORY.json") as f:
+        committed = json.load(f)["entries"][-1]["quality"]
+    drift = diff_quality(committed, got)
+    n_fields = sum(len(m) for t in got.values() for m in t.values())
+    log(f"[replay] {len(got)} traces x {len(next(iter(got.values())))} "
+        f"modes, {n_fields} fields against BENCH_HISTORY.json's last entry "
+        f"(Python {sys.version.split()[0]}): {len(drift)} drift rows, "
+        f"{wall:.2f} s")
+    if drift or sorted(got) != sorted(committed):
+        raise AssertionError(f"replay drift: {drift[:5]}")
+    record["replay"] = {"fields": n_fields, "drift_rows": 0, "wall_s": wall}
+
+
+def policy_phases(record: dict) -> None:
+    """Phase 8 on full-width, full-depth StableLM-2 1.6B. Adds B3's
+    launches on each phase to ``record``."""
+    from repro_torch import configs
+    study = study_setup(configs.get("stablelm-1.6b"))
+    slotted = study_mapreduce(record, study)
+    study_sched(record, study, slotted)
+    study_controlplane(record, study, slotted)
+    study_replay(record)
+
+
+# ---------------------------------------------------------------------------
+# [replay]: the committed traces against BENCH_HISTORY.json
+# ---------------------------------------------------------------------------
+
+def replay_metrics(r) -> dict:
+    """One mode's quality row, as the history records it (the fields of
+    ``benchmarks/bench_trace_replay.py::_metrics``)."""
+    return {
+        "utilization": r.node_util,
+        "effective_util": r.effective_util,
+        "p50_wait": r.p50_wait(),
+        "p99_wait": r.p99_wait(),
+        "mean_wait": r.mean_wait(),
+        "makespan": r.makespan,
+        "throughput": r.throughput,
+        "completed": len(r.stats),
+        "rejected": len(r.rejected),
+        "events": r.events,
+        "lane_backfills": r.lane_backfills,
+        "preemptions": r.preemptions,
+        "repacks": r.repacks,
+        "spatial_placements": r.spatial_placements,
+    }
+
+
+def replay_quality(S, TR, traces_dir, names=None) -> dict:
+    """{trace: {mode: metrics}} of ``S.compare_modes`` over the committed
+    trace files; ``S`` and ``TR`` are a package's ``simulate`` and
+    ``traces`` modules (the tests pass the reference's too)."""
+    quality = {}
+    for name in sorted(TR.CANONICAL if names is None else names):
+        header, jobs = TR.load_jsonl(TR.trace_path(str(traces_dir), name))
+        cfg = TR.replay_config_from(header)
+        reports = S.compare_modes(jobs, cfg.n_nodes, **TR.replay_kwargs(cfg))
+        quality[name] = {mode: replay_metrics(r)
+                         for mode, r in reports.items()}
+    return quality
+
+
+def diff_quality(old: dict, new: dict) -> list:
+    """Drift rows between two quality blobs, compared exactly (``!=`` on
+    the doubles), a trace or mode present in one only included (the rule
+    of ``benchmarks/bench_trace_replay.py::diff_quality``)."""
+    out = []
+    side = lambda in_old: "committed" if in_old else "current"
+    for trace in sorted(set(old) | set(new)):
+        if trace not in old or trace not in new:
+            out.append(f"{trace}: only in {side(trace in old)}")
+            continue
+        for mode in sorted(set(old[trace]) | set(new[trace])):
+            if mode not in old[trace] or mode not in new[trace]:
+                out.append(f"{trace}/{mode}: only in "
+                           f"{side(mode in old[trace])}")
+                continue
+            om, nm = old[trace][mode], new[trace][mode]
+            for k in sorted(set(om) | set(nm)):
+                if om.get(k) != nm.get(k):
+                    out.append(f"{trace}/{mode}/{k}: committed="
+                               f"{om.get(k)!r} current={nm.get(k)!r}")
+    return out
 
 
 def _tree_to(tree, device):
@@ -2265,8 +2705,11 @@ def main() -> int:
     profile_training(lenet_pool, lenet_batch, kernel_args)
     del lenet_pool, lenet_batch, kernel_args
     train_lm(records[0])
-    log(f"[done] {time.perf_counter() - t0:.1f} s, training phases "
-        f"{time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    policy_phases(records[0])
+    t3 = time.perf_counter()
+    log(f"[done] {t3 - t0:.1f} s, training phases {t2 - t1:.1f} s, policy "
+        f"phases {t3 - t2:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,16 @@ def test_sweep_slice_modules_load_no_jax(module):
     _alone_loads_no_jax(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.elastic", "repro_torch.core.spatial",
+    "repro_torch.core.scheduler", "repro_torch.core.mapreduce",
+    "repro_torch.core.simulate", "repro_torch.core.traces",
+    "repro_torch.core.eventlog", "repro_torch.core.controlplane"])
+def test_policy_slice_modules_load_no_jax(module):
+    """Each module of the policy and durability slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
 @pytest.mark.parametrize("path", CHECKED_FILES)
 def test_source_imports_no_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
