@@ -3,10 +3,11 @@
 
 A "lane" is one slot of a stacked axis: co-resident tasks (or requests, or
 the layers of a stack) are index ``i`` of every leaf of a nested dict of
-tensors. ``axis`` names that axis; the reference always stacks on axis 0,
-and the serving pool stacks lanes on the batch axis (1) of the per-layer
-caches. Reads return views; ``tree_set_lane`` writes in place (the
-reference's ``.at[i].set`` returns a copy).
+tensors. ``axis`` names that axis, one int for every leaf or a tree of ints
+shaped as the tree; the reference always stacks on axis 0, and the serving
+pool stacks lanes on the batch axis of the per-layer caches
+(``Model.cache_lane_axes``). Reads return views; ``tree_set_lane`` writes
+in place (the reference's ``.at[i].set`` returns a copy).
 
 A per-task step runs over the lane axis through ``torch.func.vmap`` (its
 gradient through ``torch.func.grad``/``grad_and_value`` on dict params), so
@@ -73,31 +74,37 @@ def _fill(like: Any, it) -> Any:
     return next(it)
 
 
-def stack_trees(trees: Sequence[Any], axis: int = 0) -> Any:
+def _axes(axis: Any, tree: Any) -> Any:
+    """``axis`` as a tree of ints shaped as ``tree``."""
+    return axis if isinstance(axis, dict) else tree_map(lambda _: axis, tree)
+
+
+def stack_trees(trees: Sequence[Any], axis: Any = 0) -> Any:
     """Stack a list of identical-structure trees on a new axis."""
-    return tree_map(lambda *xs: torch.stack([torch.as_tensor(x) for x in xs],
-                                            dim=axis), *trees)
+    return tree_map(lambda a, *xs: torch.stack(
+        [torch.as_tensor(x) for x in xs], dim=a),
+        _axes(axis, trees[0]), *trees)
 
 
 def unstack_tree(tree: Any, n: int) -> list:
     return [lane_slice(tree, i) for i in range(n)]
 
 
-def lane_slice(tree: Any, i: int, axis: int = 0) -> Any:
+def lane_slice(tree: Any, i: int, axis: Any = 0) -> Any:
     """Lane ``i`` of every leaf, as views."""
-    return tree_map(lambda x: x.select(axis, i), tree)
+    return tree_map(lambda x, a: x.select(a, i), tree, _axes(axis, tree))
 
 
-def tree_get_lane(tree: Any, i: int, axis: int = 0) -> Any:
+def tree_get_lane(tree: Any, i: int, axis: Any = 0) -> Any:
     """Read lane ``i`` of a stacked tree (views)."""
     return lane_slice(tree, i, axis)
 
 
-def tree_set_lane(tree: Any, i: int, lane: Any, axis: int = 0) -> Any:
+def tree_set_lane(tree: Any, i: int, lane: Any, axis: Any = 0) -> Any:
     """Write ``lane`` into slot ``i`` of a stacked tree, in place (cast to
     the pool's dtype and device)."""
-    tree_map(lambda pool, x: pool.select(axis, i).copy_(torch.as_tensor(x)),
-             tree, lane)
+    tree_map(lambda pool, x, a: pool.select(a, i).copy_(torch.as_tensor(x)),
+             tree, lane, _axes(axis, tree))
     return tree
 
 

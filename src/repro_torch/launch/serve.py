@@ -15,8 +15,12 @@ Port of ``repro.launch.serve``. It is TRUE continuous batching:
 
 The reference vmaps a batch-1 decode over a leading lane axis. Here the
 lane axis is written out as the batch dimension of one ``decode_step``:
-tokens (C,1), pos (C,), and every cache leaf (L, C, ...) has its lanes on
-axis 1 (``LANE_AXIS``); each lane still carries its own ``len``/``pos``.
+tokens (C,1), pos (C,), and every cache leaf has its lanes on its batch
+axis (``Model.cache_lane_axes``: 1 under a leading L axis, 2 under the
+hybrid's (n_super, period) Mamba2 states); each lane still carries its own
+``len``/``pos``. The step routes each lane's token through the MoE blocks
+alone (``decode_step(route_rows=True)``), as the reference's batch-1 decode
+does, so an expert's capacity never couples co-resident requests.
 Prompts are left-padded with token 0 to one length per ``run``, and the
 padding is attended (or scanned), as in the reference; for Mamba2 that
 length must be a multiple of the SSD chunk, or at most one chunk.
@@ -32,8 +36,6 @@ import torch
 
 from repro_torch.core import packing
 from repro_torch.models.model import Model
-
-LANE_AXIS = 1   # the batch axis of the (L, B, ...) cache leaves
 
 
 @dataclasses.dataclass
@@ -116,6 +118,7 @@ class BatchServer:
         C = min(self.lanes, len(queue))
         dev = self.model.device
         stats = self.stats
+        axes = self.model.cache_lane_axes()
 
         def prefill_one(r: Request):
             toks = np.zeros((1, S_pad), np.int64)
@@ -127,12 +130,12 @@ class BatchServer:
             first = int(logits.argmax(-1)[0])
             stats.prefill_s += time.perf_counter() - t0
             stats.prefills += 1
-            return first, packing.tree_get_lane(cache, 0, LANE_AXIS)
+            return first, packing.tree_get_lane(cache, 0, axes)
 
         # seed the pool from the first prefill so every leaf has its lane
         # axis before any swap (shapes fixed until an adaptive resize)
         first0, lane0 = prefill_one(queue[0])
-        pool_cache = packing.stack_trees([lane0] * C, LANE_AXIS)
+        pool_cache = packing.stack_trees([lane0] * C, axes)
         cur = np.zeros((C,), np.int64)
         pos = np.full((C,), S_pad, np.int64)
         lane_req: List[Optional[Request]] = [None] * C
@@ -140,7 +143,7 @@ class BatchServer:
         def attach(lane: int, r: Request, first=None, cache=None):
             if first is None:
                 first, cache = prefill_one(r)
-            packing.tree_set_lane(pool_cache, lane, cache, LANE_AXIS)
+            packing.tree_set_lane(pool_cache, lane, cache, axes)
             cur[lane] = first
             pos[lane] = S_pad
             lane_req[lane] = r
@@ -150,12 +153,12 @@ class BatchServer:
             state is copied unchanged)."""
             nonlocal pool_cache, cur, pos, lane_req, C
             live = [l for l, r in enumerate(lane_req) if r is not None]
-            caches = [packing.tree_get_lane(pool_cache, l, LANE_AXIS)
+            caches = [packing.tree_get_lane(pool_cache, l, axes)
                       for l in live]
             template = caches[0] if caches \
-                else packing.tree_get_lane(pool_cache, 0, LANE_AXIS)
+                else packing.tree_get_lane(pool_cache, 0, axes)
             new_cache = packing.stack_trees(
-                caches + [template] * (new_c - len(caches)), LANE_AXIS)
+                caches + [template] * (new_c - len(caches)), axes)
             new_cur = np.zeros((new_c,), np.int64)
             new_pos = np.full((new_c,), S_pad, np.int64)
             new_req: List[Optional[Request]] = [None] * new_c
@@ -201,7 +204,7 @@ class BatchServer:
                     self.params,
                     {"tokens": torch.from_numpy(cur[:, None]).to(dev),
                      "pos": torch.from_numpy(pos).to(dev)},
-                    pool_cache)
+                    pool_cache, route_rows=True)
                 nxt = logits.argmax(-1).cpu().numpy()            # (C,)
                 stats.decode_s += time.perf_counter() - t0
                 stats.global_steps += 1

@@ -38,7 +38,7 @@ def test_import_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 45   # configs, kernels, models, core, launch, optim,
+    assert out["n"] >= 46   # configs, kernels, models, core, launch, optim,
                             # data, checkpoint
     assert out["bad"] == []
 
@@ -84,6 +84,14 @@ def test_sweep_slice_modules_load_no_jax(module):
     "repro_torch.core.eventlog", "repro_torch.core.controlplane"])
 def test_policy_slice_modules_load_no_jax(module):
     """Each module of the policy and durability slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.moe", "repro_torch.models.transformer",
+    "repro_torch.launch.serve"])
+def test_moe_hybrid_slice_modules_load_no_jax(module):
+    """Each module of the moe and hybrid slice, imported alone."""
     _alone_loads_no_jax(module)
 
 

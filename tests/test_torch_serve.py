@@ -1,7 +1,9 @@
 """The port's continuous-batching ``BatchServer``: greedy tokens equal to the
 JAX ``BatchServer`` on the same parameters and requests, and the decode
 accounting and lane-isolation invariants of tests/test_serve_continuous.py,
-for the dense family (KV caches) and the ssm family (Mamba2 states)."""
+for the dense family (KV caches), the ssm family (Mamba2 states), the moe
+family (routed experts with capacity, on both sides) and the hybrid (its
+nested cache, Mamba2 states with their lanes on axis 2)."""
 import jax
 import numpy as np
 import pytest
@@ -16,15 +18,17 @@ from repro_torch.core import packing
 from repro_torch.launch.serve import BatchServer, Request
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
+from tests.test_torch_moe import counted_drops
 
-ARCHS = ["stablelm-1.6b", "mamba2-130m"]
+ARCHS = ["stablelm-1.6b", "mamba2-130m", "deepseek-moe-16b", "zamba2-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def ref(request):
-    """(jax model, jax params, the same params for the port, arch)."""
+    """(jax model, jax params, the same params for the port, arch). MoE
+    blocks route with capacity on both sides (no oracle)."""
     arch = request.param
-    jm = jbuild(jconfigs.get(arch).reduced(), JCtx(moe_oracle=True))
+    jm = jbuild(jconfigs.get(arch).reduced(), JCtx())
     jp = jm.init(jax.random.PRNGKey(0))
     return jm, jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                      "cpu"), arch
@@ -159,6 +163,58 @@ def test_zero_max_new_request_is_done_immediately(ref):
     srv.run([Request(id=2, prompt=np.arange(1, 4, dtype=np.int32),
                      max_new=0)])
     assert srv.stats.lane_steps == 0 and srv.stats.n_requests == 0
+
+
+def test_moe_lanes_routed_alone_under_capacity():
+    """12 lanes of the routed reduced MoE: routed jointly, the 12 decode
+    tokens overflow an expert's capacity (capacity_for(12) = 8), so the
+    server routes each lane alone, as the reference decodes each lane at
+    batch 1 under vmap. Every request's tokens equal the reference
+    server's, and equal the tokens it gets served alone."""
+    arch = "deepseek-moe-16b"
+    jm = jbuild(jconfigs.get(arch).reduced(), JCtx())
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    model = Model(configs.get(arch).reduced(), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, int(rng.integers(3, 10)))
+               for _ in range(12)]
+    S = max(len(p) for p in prompts)
+    mk = lambda cls: [cls(id=i, prompt=p.astype(np.int32), max_new=5)
+                      for i, p in enumerate(prompts)]
+
+    # the first decode step of the 12 lanes, routed jointly, drops
+    axes = model.cache_lane_axes()
+    lanes, firsts = [], []
+    for p in prompts:
+        toks = np.zeros((1, S), np.int64)
+        toks[0, S - len(p):] = p
+        logits, cache = model.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                      max_len=32)
+        firsts.append(int(logits.argmax()))
+        lanes.append(packing.tree_get_lane(cache, 0, axes))
+    pool = packing.stack_trees(lanes, axes)
+    with torch.no_grad(), counted_drops() as drops:
+        model.decode_step(tp, {"tokens": torch.tensor(firsts)[:, None],
+                               "pos": torch.full((12,), S)}, pool)
+    assert sum(drops) >= 1
+
+    want = JServer(jm, jp, batch_lanes=12, max_len=32).run(mk(JRequest))
+    srv = BatchServer(model, tp, batch_lanes=12, max_len=32)
+    with counted_drops() as drops:
+        got = srv.run(mk(Request))
+    assert got == want
+    # the server's decode steps drop nothing (its prefills may: one prompt
+    # of S tokens has capacity_for(S)); all 12 prefills come first
+    L = model.cfg.num_layers
+    assert len(drops) == L * (srv.stats.prefills + srv.stats.global_steps)
+    assert sum(drops[L * srv.stats.prefills:]) == 0
+    for r in mk(Request):
+        # served alone, padded to the same length as in the pool
+        pad = Request(id=99, prompt=np.ones(S, np.int32), max_new=1)
+        alone = BatchServer(model, tp, batch_lanes=1, max_len=32).run(
+            [r, pad])
+        assert alone[r.id] == got[r.id]
 
 
 @pytest.mark.parametrize("axis", [0, 1])
