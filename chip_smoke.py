@@ -17,7 +17,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    f32 / ragged / lane-masked cases, at head dims 16 (the reduced configs,
    f32) and 112 (zamba2-7b, bf16) too, at [serve-moe]'s (1, 1024, 16,
    128) and [serve-hybrid]'s (1, 1024, 32, 112) prefill shapes (both
-   timed), at [train-lm]'s pool-step shape
+   timed), at [serve-vlm]'s longest prefill (1, 881, 28 query heads on 4
+   KV heads, 128) causal and [serve-encdec]'s encoder (1, 1024, 16, 64)
+   bidirectional (both timed), at [train-lm]'s pool-step shape
    (4, 512, 32, 64) bf16 causal, and ``torch.func.vmap(grad)`` of a loss
    through ``ops.flash_attention`` (one B3 launch per vmapped call) against
    the same through ``sdpa_chunked``, in f32 (simt body) and at
@@ -42,7 +44,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    CPU (chunked path) from the same parameters must agree: a head-dim-64
    variant of the reduced StableLM-2, the stock reduced config (head
    dim 16), the reduced DeepSeekMoE and the reduced Zamba2 with a tail
-   (B4's f32 body too);
+   (B4's f32 body too); the reduced Qwen2-VL and SeamlessM4T (prefill
+   and 3 decode steps each) and the reduced ResNet-18 (width 0.25, 16 px:
+   logits, loss and two steps of a 2-lane ``packed_step``);
 4. [serve] the serving path: ``BatchServer`` serving 8 requests on
    full-width StableLM-2 1.6B (random weights from a seed), with every
    kernel's launch count read around that run (B3's by body: all on the
@@ -60,7 +64,17 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    routes, logged; the [profile] with its expert-weight casts' share) and
    [serve-hybrid] for Zamba2-7B at its published width and depth (B3 13
    launches and B4 81 a prefill; the bf16 route's rounding twins logged
-   and the two routes held in f32 too);
+   and the two routes held in f32 too); then [serve-vlm], Qwen2-VL-7B at
+   its published width and depth (4 requests of a text prefix, one image
+   of merged patches and a text suffix, fed as embeddings with distinct
+   M-RoPE streams; 28 B3 launches a prefill) and [serve-encdec],
+   SeamlessM4T-medium likewise (4 requests of 512-1024 encoder frames and
+   a short decoder prompt; 24 B3 launches a prefill, the encoder's 12
+   bidirectional): each request's ``Model.prefill`` at batch 1, then
+   greedy ``decode_step``s (no B3 launch), the longest request's prefill
+   through the kernels against the plain versions (each B3 call on its
+   served inputs too, and both routes in f32), a [profile] of one prefill
+   and one decode step;
 5. [train-lenet] the paper's workflow: a triples plan, the profile of one
    LeNet-4 step at batch 64, 8 packed lanes with per-lane learning rates,
    a ``RefillExecutor`` over 24 tasks in "where" and "compact" mode, a
@@ -85,6 +99,12 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    and at one lane of 8,192 tokens, [profile] one pool step; then
    on the reduced StableLM-2 a drain resumed at ``max_pack=2``, an
    ``adaptive_pack`` sweep and the card's losses against the CPU's;
+   [train-resnet] the paper's §III-B ladder: ResNet-18 (width 1.0, 224 px,
+   1000 classes) under ``packing.packed_step`` with SGD at NPPN 1, 2, 4
+   and 6, 12 tasks in ceil(12 / NPPN) waves of 2 steps: individual time,
+   job elapsed, speedup, bytes(1) x NPPN against the measured peak, each
+   lane's losses against its task run alone, [profile] one pool step at
+   NPPN 6;
 8. the policy and durability layer on the paper's LLMapReduce use, a
    parametric study scoring 10 prompts of 1,024 tokens (each item's mean
    NLL) with full-width, full-depth StableLM-2 1.6B, B3's launches read
@@ -264,6 +284,19 @@ STUDY_TIMING_ITEMS = 40
 # for cuBLAS to pick another algorithm at another batch (ROADMAP C3); each
 # packed loss must also lie nearest its own item's slotted loss
 STUDY_LOSS_RTOL = 1e-5
+
+# [train-resnet]: the paper's §III-B ladder (benchmarks/bench_imagenet_
+# sharing.py:28-31,57): 12 tasks at NPPN 1, 2, 4, 6, 2 steps a wave; the
+# per-lane batch starts at 16 (the paper's 256 images at 224 px do not fit
+# six lanes) and is the largest power of two whose measured bytes(1) x 6
+# fits TRAIN_LM_HBM_FRACTION of the card
+RESNET_TASKS, RESNET_STEPS = 12, 2
+RESNET_NPPN = (1, 2, 4, 6)
+RESNET_BATCH = 16
+# each lane's loss packed against the same task alone: the CPU test's
+# tolerance (tests/test_torch_resnet.py TOL); cuDNN may pick other
+# algorithms for another lane count (ROADMAP C4), so not bits
+RESNET_LOSS_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def log(*a):
@@ -492,8 +525,11 @@ def check_flash_attention() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch import configs
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
+    vlm = configs.get("qwen2-vl-7b")
+    s_vlm = max(r.S for r in vlm_requests(vlm.vocab_size, vlm.d_model))
     # (name, B, Sq, Sk, Hq, Hkv, D, dtype, causal, window)
     cases = [
         ("prefill", 1, 1024, 1024, 32, 32, 64, bf16, True, 0),
@@ -522,6 +558,11 @@ def check_flash_attention() -> dict:
         ("train_lm", 4, 512, 512, 32, 32, 64, bf16, True, 0),
         # [mapreduce]'s packed study: 4 lanes of (1, 1024) folded into B
         ("study_packed", 4, 1024, 1024, 32, 32, 64, bf16, True, 0),
+        # [serve-vlm]'s longest prefill: Qwen2-VL-7B, 28 query heads on 4 KV
+        # heads (groups of 7) of 128; [serve-encdec]'s encoder at its
+        # longest request: SeamlessM4T-medium, 16 heads of 64, bidirectional
+        ("vlm_prefill", 1, s_vlm, s_vlm, 28, 4, 128, bf16, True, 0),
+        ("encoder", 1, 1024, 1024, 16, 16, 64, bf16, False, 0),
     ]
     errs = {}
     for name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window in cases:
@@ -579,30 +620,33 @@ def check_flash_attention() -> dict:
         f"body): kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (device "
         f"{library_dev_ms:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
-    # the prefill shapes of [serve-moe] (D 128) and [serve-hybrid] (D 112)
+    # the prefill shapes of [serve-moe] (D 128), [serve-hybrid] (D 112),
+    # [serve-vlm] (GQA 28/4, D 128) and [serve-encdec]'s encoder (not causal)
     shapes = {}
     for case in cases:
-        if case[0] not in ("moe_prefill", "d112_causal"):
+        if case[0] not in ("moe_prefill", "d112_causal", "vlm_prefill",
+                           "encoder"):
             continue
         name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window = case
         q, k, v = _qkv(gen, B, Sq, Sk, Hq, Hkv, D, dt)
-        fn = lambda: fa.flash_attention_cuda(q, k, v, causal=True)
+        fn = lambda: fa.flash_attention_cuda(q, k, v, causal=causal)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-        t = {"max_abs_err": errs[name], "ms": cuda_time_ms(fn),
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv)
+        t = {"name": name, "max_abs_err": errs[name], "ms": cuda_time_ms(fn),
              "device_ms": device_ms(fn),
              "plain_ms": cuda_time_ms(lambda: fa.flash_attention_plain(
-                 q, k, v, causal=True)),
+                 q, k, v, causal=causal)),
              "library_ms": cuda_time_ms(sdpa),
              "library_device_ms": device_ms(sdpa)}
         t["bound_ms"], t["bound_by"] = attention_bound_ms(
             B, Sq, Sk, Hq, Hkv, D, causal, window, dt)
-        log(f"[kernel] flash_attention {tuple(q.shape)} bf16 causal (wgmma "
-            f"body): kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
-            f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms "
-            f"(device {t['library_device_ms']:.4f}), bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        log(f"[kernel] flash_attention {name} {tuple(q.shape)} Hkv {Hkv} "
+            f"bf16 causal={causal} (wgmma body): kernel {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"SDPA {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
         shapes[str((B, Sq, Hq, D))] = t
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1320,8 +1364,34 @@ def pad_longest(reqs, length: int, vocab: int, seed: int = 1):
     return reqs
 
 
+def mrope_streams(segments) -> tuple:
+    """Qwen2-VL's (t, h, w) M-RoPE position streams over ``segments``, each
+    ("text", n) or ("image", (rows, cols)) of merged patches: a text token
+    takes t = h = w = the next position; an image starting at position p
+    takes t = p, h = p + row, w = p + col; what follows resumes at the
+    largest position so far + 1. Returns ((3, S) int64, that next position,
+    which decode gives all three streams and then increments)."""
+    cols, nxt = [], 0
+    for kind, size in segments:
+        if kind == "text":
+            step = np.arange(nxt, nxt + size)
+            cols.append(np.stack([step] * 3))
+            nxt += size
+        else:
+            rows, width = size
+            r, c = np.meshgrid(np.arange(rows), np.arange(width),
+                               indexing="ij")
+            cols.append(np.stack([np.full(rows * width, nxt),
+                                  nxt + r.reshape(-1), nxt + c.reshape(-1)]))
+            nxt += max(rows, width)
+    return np.concatenate(cols, axis=1).astype(np.int64), nxt
+
+
 def blocks_of(cfg) -> tuple:
-    """(attention blocks, Mamba2 blocks) one forward of ``cfg`` runs."""
+    """(attention blocks, Mamba2 blocks) one forward of ``cfg`` runs (an
+    encdec's encoder and decoder blocks both)."""
+    if cfg.family == "encdec":
+        return cfg.num_layers + cfg.num_encoder_layers, 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.hybrid_attn_period, cfg.num_layers
     if cfg.family == "ssm":
@@ -1463,8 +1533,8 @@ def served_kernel_checks(tag: str):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as sd
-    seen = {"b3": [], "b3_limit": [], "b4": [], "b4_state": [],
-            "b4_own": []}
+    seen = {"b3": [], "b3_limit": [], "b3_causal": [], "b4": [],
+            "b4_state": [], "b4_own": []}
     attend, scan = ops.flash_attention, ops.ssd
 
     def attend_checked(q, k, v, causal=True, window=0, *, active=None):
@@ -1474,6 +1544,7 @@ def served_kernel_checks(tag: str):
         limit = BF16_MAX_ABS * max(1.0, v.float().abs().max().item() / 4)
         seen["b3"].append(err)
         seen["b3_limit"].append(limit)
+        seen["b3_causal"].append(bool(causal))
         if not (err <= limit and torch.isfinite(out).all()):
             raise AssertionError(f"{tag}: B3 call {len(seen['b3'])} "
                                  f"{tuple(q.shape)} on served inputs: max "
@@ -1680,8 +1751,10 @@ def trace_ssd(tag: str, model, params, reqs_fn, b4: dict, calls: int):
 
 
 def compare_routes(tag: str, cfg, params, r0, served_first: int, b3: dict,
-                   atol: float) -> None:
-    """``r0``'s prefill logits through the kernels against their plain
+                   atol: float, batch: dict = None,
+                   twins: bool = False) -> None:
+    """``r0``'s prefill logits (of ``batch``, by default its prompt's
+    tokens) through the kernels against their plain
     versions, within ``atol``, every B3 and B4 call of the kernel route held
     against its plain version on its served inputs
     (``served_kernel_checks``), and the kernel route's token equal to the
@@ -1690,15 +1763,20 @@ def compare_routes(tag: str, cfg, params, r0, served_first: int, b3: dict,
     the (layer, token) top-k sets that differ between the routes; for a
     model with Mamba2 blocks it logs the bf16 plain route's distance from
     its rounding twins (SSD chunk 64, f32) and holds the two routes in f32
-    (B3's simt and B4's f32 bodies) to ``DEEP_LOGIT_ATOL_F32``."""
+    (B3's simt and B4's f32 bodies) to ``DEEP_LOGIT_ATOL_F32``; ``twins``
+    does the f32 part for a model without them."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import ParallelCtx
     key = tag.replace("-", "_")
-    toks = torch.from_numpy(r0.prompt[None]).cuda()
+    if batch is None:
+        batch = {"tokens": torch.from_numpy(r0.prompt[None]).cuda()}
+    S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    frames = (f", Se {batch['enc_embeds'].shape[1]}" if "enc_embeds" in batch
+              else "")
     route = lambda c, impl: Model(c, ParallelCtx(attn_impl=impl),
                                   device="cuda").prefill(
-        params, {"tokens": toks}, max_len=2048)[0]
+        params, batch, max_len=2048)[0]
     with torch.inference_mode(), dispatch_spy() as seen:
         with served_kernel_checks(tag) as calls:
             lk = route(cfg, "kernel")
@@ -1724,8 +1802,8 @@ def compare_routes(tag: str, cfg, params, r0, served_first: int, b3: dict,
     kernel_first = int(lk.argmax())
     same = kernel_first == int(lp.argmax())
     routes = (f", top-k sets differing between the routes {flips} of "
-              f"{n_routes * toks.shape[1]} (layer, token)" if cfg.moe else "")
-    log(f"[{tag}] request {r0.id} (S {toks.shape[1]}) prefill logits, "
+              f"{n_routes * S} (layer, token)" if cfg.moe else "")
+    log(f"[{tag}] request {r0.id} (S {S}{frames}) prefill logits, "
         f"kernels vs plain: max_abs_err {err:.4g} (atol {atol}), logit std "
         f"{lp.std().item():.3f}, top-2 gap {gap:.4g}, argmax equal {same}, "
         f"kernel route's token == served first token "
@@ -1737,25 +1815,261 @@ def compare_routes(tag: str, cfg, params, r0, served_first: int, b3: dict,
                              f"{err} > {atol}, or the tokens differ "
                              f"(kernel {kernel_first}, plain "
                              f"{int(lp.argmax())}, served {served_first})")
-    if blocks_of(cfg)[1]:
+    if blocks_of(cfg)[1] or twins:
         # the bf16 route's rounding twins: the plain route at SSD chunk 64
         # (the same function summed in another f32 order), and in f32
         f32 = dataclasses.replace(cfg, compute_dtype="float32")
-        chunk_64 = dataclasses.replace(
-            cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=64))
         with torch.inference_mode():
-            twin = (route(chunk_64, "plain") - lp).abs().max().item()
+            twin = "none (no SSD)"
+            if cfg.ssm:
+                chunk_64 = dataclasses.replace(
+                    cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=64))
+                twin = f"{(route(chunk_64, 'plain') - lp).abs().max():.4g}"
             lp32 = route(f32, "plain")
             err32 = (route(f32, "kernel") - lp32).abs().max().item()
+        twin32 = (lp - lp32).abs().max().item()
         log(f"[{tag}] request {r0.id} prefill logits in f32 (B3 simt, B4 "
             f"f32 bodies), kernels vs plain: max_abs_err {err32:.4g} (atol "
             f"{DEEP_LOGIT_ATOL_F32}); bf16 rounding twins of the plain "
-            f"route: at SSD chunk 64 {twin:.4g}, against f32 "
-            f"{(lp - lp32).abs().max().item():.4g}")
+            f"route: at SSD chunk 64 {twin}, against f32 {twin32:.4g}")
         b3[f"{key}_logit_err_f32"] = err32
+        b3[f"{key}_bf16_twin_f32"] = twin32
         if not err32 <= DEEP_LOGIT_ATOL_F32:
             raise AssertionError(f"{tag} f32 prefill logits: kernels vs "
                                  f"plain err {err32}")
+
+
+# [serve-vlm]: Qwen2-VL-7B's requests, each a text prefix, one image of
+# merged patches on one of these grids, and a text suffix
+VLM_GRIDS = ((16, 16), (24, 24), (32, 24), (24, 32))
+# [serve-encdec]: SeamlessM4T-medium's encoder frames per request, and the
+# decoder caches' lengths, neither equal to any Se (the cross K/V cache
+# must come back Se rows long whatever max_len is)
+ENCDEC_FRAMES = (512, 768, 1024, 1024)
+ENCDEC_MAX_LENS = (64, 2048, 64, 2048)
+
+
+def vlm_requests(vocab: int, d_model: int, seed: int = 0) -> list:
+    """4 requests from numpy ``seed``: text prefix and suffix of 16-64
+    tokens around one image on ``VLM_GRIDS`` (its rows seeded N(0,1) x 0.1,
+    the config's stub frontend), max_new 16-32, with their M-RoPE
+    streams."""
+    import types
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, grid in enumerate(VLM_GRIDS):
+        n1, n2 = (int(n) for n in rng.integers(16, 65, 2))
+        segs = (("text", n1), ("image", grid), ("text", n2))
+        pos, nxt = mrope_streams(segs)
+        reqs.append(types.SimpleNamespace(
+            id=i, text=rng.integers(0, vocab, n1 + n2), n1=n1,
+            image=(rng.standard_normal((grid[0] * grid[1], d_model))
+                   * 0.1).astype(np.float32),
+            mrope=pos, next_pos=nxt, S=pos.shape[1],
+            max_new=int(rng.integers(16, 33)), max_len=2048))
+    return reqs
+
+
+def encdec_requests(vocab: int, d_model: int, seed: int = 0) -> list:
+    """4 requests from numpy ``seed``: ``ENCDEC_FRAMES`` frames of seeded
+    N(0,1) x 0.1 (the config's stub speech frontend), a decoder prompt of
+    2-8 tokens, max_new 24-48, cache length ``ENCDEC_MAX_LENS``."""
+    import types
+    rng = np.random.default_rng(seed)
+    return [types.SimpleNamespace(
+        id=i, frames=(rng.standard_normal((se, d_model)) * 0.1).astype(
+            np.float32),
+        text=rng.integers(0, vocab, int(rng.integers(2, 9))),
+        max_new=int(rng.integers(24, 49)), max_len=ml)
+        for i, (se, ml) in enumerate(zip(ENCDEC_FRAMES, ENCDEC_MAX_LENS))]
+
+
+def embeds_batch(model, params, r) -> dict:
+    """The prefill batch of a [serve-vlm] or [serve-encdec] request on the
+    model's device, in the compute dtype: the vlm's text rows are the embedding
+    table's rows of its tokens, its image rows the request's."""
+    import torch
+    cdt, dev = model.cdt, model.device
+    text = torch.from_numpy(r.text).to(dev)
+    if model.cfg.family == "vlm":
+        rows = params["embed"][text].to(cdt)
+        img = torch.from_numpy(r.image).to(dev, cdt)
+        embeds = torch.cat([rows[:r.n1], img, rows[r.n1:]])[None]
+        return {"embeds": embeds,
+                "mrope_pos": torch.from_numpy(r.mrope[:, None]).to(dev)}
+    return {"enc_embeds": torch.from_numpy(r.frames[None]).to(dev, cdt),
+            "tokens": text[None]}
+
+
+def embeds_step(model, r, batch, tok, i: int) -> dict:
+    """The batch of decode step ``i`` after request ``r``'s prefill
+    ``batch``: token ``tok`` (1, 1) at position S + i and, for the vlm, all
+    three M-RoPE streams at the request's next position + i."""
+    import torch
+    dev = model.device
+    S = batch["tokens" if model.cfg.is_encdec else "embeds"].shape[1]
+    step = {"tokens": tok.to(dev), "pos": torch.full((1,), S + i,
+                                                     device=dev)}
+    if model.cfg.family == "vlm":
+        step["mrope_pos"] = torch.full((3, 1, 1), r.next_pos + i,
+                                       device=dev)
+    return step
+
+
+@contextlib.contextmanager
+def causal_spy():
+    """Within the block, the ``causal`` flag of every ``ops.flash_attention``
+    call is appended to the yielded list (the launch counts stay the
+    wrappers')."""
+    from repro_torch.kernels import ops
+    seen: list = []
+    attend = ops.flash_attention
+
+    def spy(q, k, v, causal=True, window=0, *, active=None):
+        seen.append(bool(causal))
+        return attend(q, k, v, causal=causal, window=window, active=active)
+    ops.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = attend
+
+
+def serve_embeds(tag: str, cfg, reqs_fn, b3: dict,
+                 atol: float = LOGIT_ATOL_BF16):
+    """The model's own serving entry points on requests fed embeddings (the
+    reference's server takes token batches only): each request's
+    ``Model.prefill`` at batch 1, then greedy ``decode_step``s up to its
+    max_new, on a full ``cfg`` (random f32 weights from torch seed 0, bf16
+    compute), every count set to 0 just before the run and read just after
+    it. Gates: B3 launches == prefills x attention blocks (an encdec's
+    encoder half non-causal), all on the wgmma body, none in decode; every
+    token in the vocabulary. Logs prefill ms per request, decode tokens/s,
+    peak memory. Then ``compare_routes`` on the longest request (with its
+    f32 twins), and a [profile] of one prefill and one decode step."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_attn = blocks_of(cfg)[0]
+    n_enc = cfg.num_encoder_layers if cfg.is_encdec else 0
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} decoder layers"
+        f"{f' + {n_enc} encoder layers' if n_enc else ''}, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV heads "
+        f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}: {n_params / 1e9:.3f} B params f32 "
+        f"({4 * n_params / 1e9:.1f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = reqs_fn()
+    batches = [embeds_batch(model, params, r) for r in reqs]
+    out, prefill_ms, decode_s, in_prefill = {}, [], 0.0, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), causal_spy() as causal:
+        reset_launches()
+        for r, batch in zip(reqs, batches):
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch, max_len=r.max_len)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            in_prefill = fa.flash_attention_cuda.launches
+            if cfg.is_encdec and tuple(cache["cross_k"].shape[:3]) != (
+                    cfg.num_layers, 1, r.frames.shape[0]):
+                raise AssertionError(f"{tag} request {r.id}: cross K/V "
+                                     f"cache {tuple(cache['cross_k'].shape)}"
+                                     f", want Se = {r.frames.shape[0]} rows")
+            toks = [tok]
+            t0 = time.perf_counter()
+            for i in range(r.max_new - 1):
+                logits, cache = model.decode_step(
+                    params, embeds_step(model, r, batch, tok[:, None], i),
+                    cache)
+                tok = logits.argmax(-1)
+                toks.append(tok)
+            out[r.id] = torch.cat(toks).tolist()
+            decode_s += time.perf_counter() - t0
+            if fa.flash_attention_cuda.launches != in_prefill:
+                raise AssertionError(f"{tag} request {r.id}: B3 launched in "
+                                     f"decode")
+            del cache
+        launches = read_launches()
+    by_body = dict(fa.flash_attention_cuda.launches_by_body)
+    name = f"launches_{tag.replace('-', '_')}"
+    b3[name], b3[f"{name}_by_body"] = launches["flash_attention_fwd"], by_body
+    b3[f"{name}_noncausal"] = causal.count(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_dec = sum(r.max_new - 1 for r in reqs)
+    lengths = [b["tokens" if cfg.is_encdec else "embeds"].shape[1]
+               for b in batches]
+    frames = [r.frames.shape[0] for r in reqs] if cfg.is_encdec else None
+    log(f"[{tag}] {len(reqs)} requests, prefill lengths {lengths}"
+        f"{f', encoder frames {frames}' if frames else ''}, max_new "
+        f"{[r.max_new for r in reqs]}, max_len {[r.max_len for r in reqs]}:"
+        f" launches {launches}; flash_attention by body {by_body}, "
+        f"non-causal {causal.count(False)} of {len(causal)}")
+    log(f"[{tag}] prefill ms per request "
+        f"{[round(ms, 2) for ms in prefill_ms]}, decode "
+        f"{n_dec / decode_s:.1f} tokens/s over {n_dec} steps at batch 1 "
+        f"({1e3 * decode_s / n_dec:.2f} ms/step), peak memory "
+        f"{peak_gb:.2f} GB")
+    b3_n = launches["flash_attention_fwd"]
+    if (b3_n != len(reqs) * n_attn or by_body["wgmma"] != b3_n
+            or causal.count(False) != len(reqs) * n_enc):
+        raise AssertionError(f"{tag}: flash_attention launches {b3_n} (by "
+                             f"body {by_body}, non-causal "
+                             f"{causal.count(False)}) != prefills "
+                             f"{len(reqs)} x {n_attn}, all wgmma, "
+                             f"{n_enc} a prefill non-causal")
+    for r in reqs:
+        toks = out[r.id]
+        if len(toks) != r.max_new or not all(0 <= t < cfg.padded_vocab
+                                             for t in toks):
+            raise AssertionError(f"{tag} request {r.id}: bad tokens {toks}")
+    i0 = int(np.argmax([S + (r.frames.shape[0] if cfg.is_encdec else 0)
+                        for S, r in zip(lengths, reqs)]))
+    compare_routes(tag, cfg, params, reqs[i0], out[reqs[i0].id][0], b3,
+                   atol, batch=batches[i0], twins=True)
+    profile_embeds(model, params, reqs[i0], batches[i0])
+
+
+def profile_embeds(model, params, r, batch) -> None:
+    """Device time by kernel and by kind, and the device's idle share, for
+    one prefill of ``batch`` and one decode step after it (batch 1, as
+    ``serve_embeds`` serves)."""
+    import torch
+    S = batch["tokens" if model.cfg.is_encdec else "embeds"].shape[1]
+    with torch.inference_mode():
+        _, cache = model.prefill(params, batch, max_len=r.max_len)
+        step = embeds_step(model, r, batch, torch.zeros(
+            (1, 1), dtype=torch.long), 0)
+        name = model.cfg.name
+        calls = ((f"{name} prefill (S {S})", lambda: model.prefill(
+            params, batch, max_len=r.max_len)),
+                 (f"{name} decode step", lambda: model.decode_step(
+                     params, step, cache)))
+        for _, by_name in profile_calls(calls):
+            log_by_kind(by_name)
+
+
+def serve_embeds_paths(b3: dict) -> None:
+    """[serve-vlm] (Qwen2-VL-7B) and [serve-encdec] (SeamlessM4T-medium),
+    each at its published width and depth, nothing cut."""
+    from repro_torch import configs
+    for tag, name, make in (("serve-vlm", "qwen2-vl-7b", vlm_requests),
+                            ("serve-encdec", "seamless-m4t-medium",
+                             encdec_requests)):
+        cfg = configs.get(name)
+        serve_embeds(tag, cfg, lambda c=cfg, m=make: m(c.vocab_size,
+                                                        c.d_model), b3)
 
 
 # [serve-moe]: DeepSeekMoE-16B at its published width, its depth cut from 28
@@ -1799,8 +2113,10 @@ def serve_paths(b3: dict, b4: dict) -> None:
 def profile_calls(calls) -> list:
     """For each (label, fn): the host-clock wall time of a warm call (median
     of 3, unprofiled), the sum of kernel durations in a torch.profiler trace
-    of one call, the device's idle share (1 - kernels / wall), and the top
-    kernels by device time. Returns (wall ms, {kernel: (ms, launches)}) per
+    of one call, the device's idle share (1 - busy / wall, busy the union
+    of the kernels' intervals: kernels on other streams may overlap, as
+    cuDNN's do, and then their sum exceeds the wall), and the top kernels
+    by device time. Returns (wall ms, {kernel: (ms, launches)}) per
     call."""
     import torch
     readings = []
@@ -1813,18 +2129,27 @@ def profile_calls(calls) -> list:
             walls.append(1e3 * (time.perf_counter() - t0))
         wall_ms = float(np.median(walls[1:]))
         by_name: dict = {}
+        spans = []
         for e in device_events(fn, with_cpu=True):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        busy_ms = sum(ms for ms, _ in by_name.values())
+            spans.append((e.time_range.start, e.time_range.end))
+        kernel_ms = sum(ms for ms, _ in by_name.values())
+        busy_ms, reach = 0.0, None
+        for start, end in sorted(spans):
+            if reach is not None and start < reach:
+                start = reach
+            if end > start:
+                busy_ms += (end - start) / 1e3
+            reach = end if reach is None else max(reach, end)
         launches = sum(n for _, n in by_name.values())
         log(f"[profile] {label}: wall {wall_ms:.2f} ms (median of 3, "
             f"{min(walls[1:]):.2f}-{max(walls[1:]):.2f}, unprofiled), "
-            f"kernels {busy_ms:.2f} ms in {launches} "
-            f"launches, device idle {1 - busy_ms / wall_ms:.3f}")
+            f"kernels {kernel_ms:.2f} ms in {launches} launches (busy "
+            f"{busy_ms:.2f} ms), device idle {1 - busy_ms / wall_ms:.3f}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
         for name, (ms, n) in top:
-            log(f"[profile]   {ms:8.3f} ms {ms / busy_ms:6.1%} x{n:<4d} "
+            log(f"[profile]   {ms:8.3f} ms {ms / kernel_ms:6.1%} x{n:<4d} "
                 f"{name[:70]}")
         readings.append((wall_ms, by_name))
     return readings
@@ -1878,6 +2203,20 @@ def lenet_step(opt):
 
     def step(params, opt_state, batch, lr):
         g, loss = torch.func.grad_and_value(lenet.loss)(params, batch)
+        upd, opt_state = opt.update(g, opt_state, params, lr)
+        return optim.apply_updates(params, upd), opt_state, {"loss": loss}
+    return step
+
+
+def resnet_step(opt):
+    """The paper's §III-B per-task step: one SGD step of ResNet-18 (one
+    lane), as ``benchmarks/bench_imagenet_sharing.py``'s ``_step_fn``."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.models import resnet
+
+    def step(params, opt_state, batch, lr):
+        g, loss = torch.func.grad_and_value(resnet.loss)(params, batch)
         upd, opt_state = opt.update(g, opt_state, params, lr)
         return optim.apply_updates(params, upd), opt_state, {"loss": loss}
     return step
@@ -2277,9 +2616,12 @@ def lm_peaks(model, k: int, batch_fn) -> dict:
     return out
 
 
-# kernel kinds by name: B3; the GEMMs (cuBLAS and CUTLASS names);
+# kernel kinds by name: B3; cuDNN's convolutions (its layout transposes
+# and FFT products among them); the GEMMs (cuBLAS and CUTLASS names);
 # reductions; copies, casts and layout changes; the rest elementwise
 KERNEL_KINDS = (("B3", ("fa_fwd",)),
+                ("conv (cuDNN)", ("cudnn", "fprop", "dgrad", "wgrad",
+                                  "pointwise_mult_and_sum_complex")),
                 ("GEMM", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
                 ("reduction", ("reduce", "norm_kernel")),
                 ("copy/cast", ("copy", "cat", "index", "scatter", "gather",
@@ -2322,6 +2664,270 @@ def cpu_drawn_model(cfg, device):
                 torch.Generator().manual_seed(generator.initial_seed()))
             return _tree_to(params, self.device)
     return CpuDrawn(cfg, device=device)
+
+
+def check_small_families() -> None:
+    """[small] the reduced vlm and encdec configs (f32, head dim 16: B3's
+    simt body) on the card through the kernels and on the CPU through the
+    chunked paths, from the same parameters, on request 0 of their serving
+    phase's requests: prefill logits, then 3 greedy decode steps' logits
+    and tokens; and the reduced ResNet-18 (width 0.25, 16 px, batch 2):
+    logits, loss, and two steps of a 2-lane ``packed_step``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+    for name, make in (("qwen2-vl-7b", vlm_requests),
+                       ("seamless-m4t-medium", encdec_requests)):
+        cfg = configs.get(name).reduced()
+        r = make(cfg.vocab_size, cfg.d_model)[0]
+        cpu_model = Model(cfg, device="cpu")
+        cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+        gpu_model = Model(cfg, device="cuda")
+        gpu_params = _tree_to(cpu_params, "cuda")
+        before = fa.flash_attention_cuda.launches_by_body["simt"]
+        runs = []
+        for model, params in ((cpu_model, cpu_params),
+                              (gpu_model, gpu_params)):
+            batch = embeds_batch(model, params, r)
+            logits, cache = model.prefill(params, batch, max_len=r.max_len)
+            runs.append(([logits.cpu()], cache, params, model, batch))
+        launched = fa.flash_attention_cuda.launches_by_body["simt"] - before
+        S = batch["tokens" if cfg.is_encdec else "embeds"].shape[1]
+        for i in range(3):
+            tok = runs[0][0][-1].argmax(-1)[:, None]
+            for logs, cache, params, model, batch in runs:
+                logs.append(model.decode_step(params, embeds_step(
+                    model, r, batch, tok, i), cache)[0].cpu())
+        errs = [(g - c).abs().max().item()
+                for g, c in zip(runs[1][0], runs[0][0])]
+        same = all(int(g.argmax()) == int(c.argmax())
+                   for g, c in zip(runs[1][0], runs[0][0]))
+        log(f"[small] {cfg.name}: f32 prefill (S {S}) and 3 decode steps' "
+            f"logits card (kernels; B3 simt {launched} launches) vs cpu "
+            f"(chunked): max_abs_err {[f'{e:.3g}' for e in errs]} (atol "
+            f"{SMALL_LOGIT_ATOL_F32}), tokens equal {same}")
+        if max(errs) > SMALL_LOGIT_ATOL_F32 or not same \
+                or launched != blocks_of(cfg)[0]:
+            raise AssertionError(f"small {cfg.name}: card and cpu differ "
+                                 f"({errs}, tokens equal {same}) or B3 "
+                                 f"launches {launched} != "
+                                 f"{blocks_of(cfg)[0]}")
+    check_small_resnet()
+
+
+def check_small_resnet() -> None:
+    """The reduced ResNet-18 (width 0.25, 1000 classes, 16 px, batch 2)
+    from the same CPU-drawn params on the card and on the CPU: logits and
+    loss, then two steps of a 2-lane ``packed_step`` (SGD): losses and
+    params within ``XDEV_LOSS_TOL`` (f32 convs in other orders; TF32
+    off)."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import packing
+    from repro_torch.data import synthetic_imagenet
+    from repro_torch.models import resnet
+    opt = optim.sgd()
+    step = packing.packed_step(resnet_step(opt))
+    lanes = [resnet.init(torch.Generator().manual_seed(i), 0.25,
+                         device="cpu") for i in range(2)]
+    batches = [packing.stack_trees([
+        {k: torch.from_numpy(v) for k, v in synthetic_imagenet(
+            2, s, seed=i, res=16).items()} for i in range(2)])
+        for s in range(2)]
+    out = []
+    for dev in ("cpu", "cuda"):
+        params = _tree_to(packing.stack_trees(lanes), dev)
+        opt_state = _tree_to(packing.stack_trees(
+            [opt.init(p) for p in lanes]), dev)
+        lane0 = _tree_to(lanes[0], dev)
+        image = batches[0]["image"][0].to(dev)
+        logits = resnet.apply(lane0, image).cpu()
+        losses = []
+        for b in batches:
+            params, opt_state, m = step(params, opt_state, _tree_to(b, dev),
+                                        torch.full((2,), 0.1, device=dev))
+            losses.append(m["loss"].cpu())
+        out.append((logits, torch.stack(losses),
+                    [t.cpu() for t in _leaves(params)]))
+    (lc, sc, pc), (lg, sg, pg) = out
+    errs = ((lg - lc).abs().max().item(), (sg - sc).abs().max().item(),
+            max((g - c).abs().max().item() for g, c in zip(pg, pc)))
+    ok = (torch.allclose(lg, lc, **XDEV_LOSS_TOL)
+          and torch.allclose(sg, sc, **XDEV_LOSS_TOL)
+          and all(torch.allclose(g, c, **XDEV_LOSS_TOL)
+                  for g, c in zip(pg, pc)))
+    log(f"[small] resnet-18 width 0.25, 16 px: card vs cpu max_abs_err "
+        f"logits {errs[0]:.3g}, 2-lane packed_step losses {errs[1]:.3g}, "
+        f"params after 2 steps {errs[2]:.3g} (allclose {XDEV_LOSS_TOL})")
+    if not ok:
+        raise AssertionError(f"small resnet: card and cpu differ {errs}")
+
+
+def train_resnet() -> None:
+    """[train-resnet] the paper's §III-B ladder: ResNet-18 at width 1.0,
+    1000 classes, 224-px ``synthetic_imagenet`` images, SGD under
+    ``packing.packed_step`` (a plain ``vmap``, no hand-written kernel) at
+    NPPN 1, 2, 4 and 6, ``RESNET_STEPS`` steps a wave; 12 tasks run in
+    ceil(12 / NPPN) waves, timed as ``benchmarks/bench_imagenet_sharing.py``
+    times them (median of 3 waves after one warm-up). Logs for each NPPN the
+    individual time, job elapsed, speedup over NPPN 1, and
+    ``monitor.profile_fn``'s bytes(1) x NPPN (the paper's linear memory
+    model) beside the wave's measured peak above what was held before the
+    lanes were built. Gates: TF32 off; every loss finite; each lane's
+    per-step losses within ``RESNET_LOSS_TOL`` of the same task run alone
+    (NPPN 1). The per-lane batch is the largest power of two from
+    ``RESNET_BATCH`` for which bytes(1) x 6 stays within
+    ``TRAIN_LM_HBM_FRACTION`` of the card. Then a [profile] of one pool
+    step at NPPN 6."""
+    import gc
+
+    import torch
+    from repro_torch import optim
+    from repro_torch.core import packing
+    from repro_torch.core.monitor import profile_fn
+    from repro_torch.data import synthetic_imagenet
+    from repro_torch.models import resnet
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("train-resnet: TF32 is on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = optim.sgd()
+    step = resnet_step(opt)
+    init = lambda i: resnet.init(torch.Generator(device="cuda").manual_seed(i))
+    data = lambda b, lane, s: {k: torch.from_numpy(v).cuda() for k, v in
+                               synthetic_imagenet(b, s, seed=lane,
+                                                  res=224).items()}
+    lr = torch.tensor(0.1, device="cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    budget = TRAIN_LM_HBM_FRACTION * total
+    p0 = init(0)
+    o0 = opt.init(p0)
+    measured = {}
+
+    def bytes1(b):
+        if b not in measured:
+            gc.collect()
+            prof = profile_fn(step, p0, o0, data(b, 0, 0), lr)
+            measured[b] = (prof.resident_bytes, prof.flops)
+        return measured[b][0]
+    batch = RESNET_BATCH
+    while batch > 1 and max(RESNET_NPPN) * bytes1(batch) > budget:
+        batch //= 2
+    while batch < 4 * RESNET_BATCH and \
+            max(RESNET_NPPN) * bytes1(2 * batch) <= budget:
+        batch *= 2
+    b1, flops = measured[batch]
+    n_params = sum(t.numel() for t in _leaves(p0))
+    log(f"[train-resnet] resnet-18 width 1.0: {n_params / 1e6:.2f} M params,"
+        f" 224 px, 1000 classes, SGD; per-lane batch {batch} (cut from the "
+        f"paper's 256): bytes(1) by batch "
+        f"{ {b: round(v[0] / 1e9, 3) for b, v in sorted(measured.items())} }"
+        f" GB, x {max(RESNET_NPPN)} within {TRAIN_LM_HBM_FRACTION:.0%} of "
+        f"{total / 1e9:.1f} GB; {flops / 1e12:.3f} TFLOP a lane-step "
+        f"(FlopCounterMode)")
+    del p0, o0
+    packed = packing.packed_step(step)
+
+    def pool(tasks):
+        """Lanes of ``tasks``: task i's params from torch seed i, its
+        batches from numpy seed i."""
+        lanes = [init(i) for i in tasks]
+        return (packing.stack_trees(lanes),
+                packing.stack_trees([opt.init(p) for p in lanes]),
+                [packing.stack_trees([data(batch, i, s) for i in tasks])
+                 for s in range(RESNET_STEPS)],
+                torch.full((len(tasks),), 0.1, device="cuda"))
+
+    def wave(params, opt_state, batches, lrs):
+        losses = []
+        for b in batches:
+            params, opt_state, m = packed(params, opt_state, b, lrs)
+            losses.append(m["loss"])
+        return torch.stack(losses)
+
+    alone = {i: wave(*pool([i]))[:, 0].cpu()
+             for i in range(max(RESNET_NPPN))}
+    results = {}
+    for conc in RESNET_NPPN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        args = pool(range(conc))
+        losses = wave(*args).cpu()
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wave(*args)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        t = sorted(ts)[1]
+        peak = torch.cuda.max_memory_allocated() - base
+        waves = -(-RESNET_TASKS // conc)
+        results[conc] = (t, t * waves)
+        gaps = [(losses[:, i] - alone[i]).abs().max().item()
+                for i in range(conc)]
+        ok = torch.isfinite(losses).all() and all(
+            torch.allclose(losses[:, i], alone[i], **RESNET_LOSS_TOL)
+            for i in range(conc))
+        log(f"[train-resnet] NPPN {conc}: individual time {t:.4f} s "
+            f"({RESNET_STEPS} steps; waves {min(ts):.4f}-{max(ts):.4f}), job "
+            f"elapsed {t * waves:.4f} s ({waves} waves), speedup "
+            f"{results[1][1] / (t * waves):.3f}; memory predicted "
+            f"bytes(1) x {conc} = {b1 * conc / 1e9:.3f} GB, measured peak "
+            f"above the held bytes {peak / 1e9:.3f} GB "
+            f"({peak / (b1 * conc):.3f} of it); losses {losses.tolist()}, "
+            f"max gap to each task alone {max(gaps):.3g} (allclose "
+            f"{RESNET_LOSS_TOL})")
+        if not ok:
+            raise AssertionError(f"train-resnet NPPN {conc}: losses "
+                                 f"{losses.tolist()} not finite or off "
+                                 f"their tasks alone {alone}")
+        if conc == max(RESNET_NPPN):
+            params, opt_state, batches, lrs = args
+            del args
+            log_by_kind(profile_calls(((
+                f"resnet-18 pool step, NPPN {conc} x batch {batch}",
+                lambda: packed(params, opt_state, batches[0], lrs)),))[0][1])
+            del params, opt_state, batches, lrs
+        else:
+            del args
+    gc.collect()
+    conv_layouts(max(RESNET_NPPN), batch)
+
+
+def conv_layouts(lanes: int, batch: int) -> None:
+    """What ``vmap`` makes of a lane's convolution: one 3x3 conv of stage 1
+    (64 -> 64 channels at 224², f32), forward and backward, as the lanes'
+    grouped convolution (``groups=lanes``, what the batching rule of
+    ``F.conv2d`` with per-lane weights runs) in NCHW and in channels-last,
+    against one lane's convolution run ``lanes`` times (CUDA events)."""
+    import torch
+    import torch.nn.functional as F
+    C, H = 64, 224
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    times = {}
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        for n in (lanes, 1):
+            x = rand(batch, n * C, H, H).contiguous(
+                memory_format=fmt).requires_grad_()
+            w = rand(n * C, C, 3, 3).contiguous(
+                memory_format=fmt).requires_grad_()
+            g = rand(batch, n * C, H, H).contiguous(memory_format=fmt)
+            times[fmt, n] = cuda_time_ms(lambda: torch.autograd.grad(
+                F.conv2d(x, w, padding=1, groups=n), (x, w), g), iters=5)
+            del x, w, g
+    log(f"[train-resnet] one stage-1 conv (batch {batch}, 64 -> 64, 224², "
+        f"f32) forward and backward, {lanes} lanes: grouped NCHW "
+        f"{times[torch.contiguous_format, lanes]:.2f} ms, grouped "
+        f"channels-last {times[torch.channels_last, lanes]:.2f} ms; one "
+        f"lane x {lanes}: NCHW "
+        f"{lanes * times[torch.contiguous_format, 1]:.2f} ms, channels-last "
+        f"{lanes * times[torch.channels_last, 1]:.2f} ms")
 
 
 def train_lm_small() -> None:
@@ -2974,12 +3580,14 @@ def diff_quality(old: dict, new: dict) -> list:
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
     return tree.to(device)
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -3001,18 +3609,24 @@ def main() -> int:
                check_ssd_scan()]
     check_mamba2_gradient()
     check_small_reference()
+    check_small_families()
     serve_paths(records[0], records[4])
     t1 = time.perf_counter()
+    serve_embeds_paths(records[0])
+    t2 = time.perf_counter()
     lenet_pool, lenet_batch = train_lenet()
     kernel_args = train_kernel(records[1])
     profile_training(lenet_pool, lenet_batch, kernel_args)
     del lenet_pool, lenet_batch, kernel_args
     train_lm(records[0])
-    t2 = time.perf_counter()
-    policy_phases(records[0])
     t3 = time.perf_counter()
-    log(f"[done] {t3 - t0:.1f} s, training phases {t2 - t1:.1f} s, policy "
-        f"phases {t3 - t2:.1f} s")
+    train_resnet()
+    t4 = time.perf_counter()
+    policy_phases(records[0])
+    t5 = time.perf_counter()
+    log(f"[done] {t5 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
+        f"{t2 - t1:.1f} s, training phases {t3 - t2:.1f} s, [train-resnet] "
+        f"{t4 - t3:.1f} s, policy phases {t5 - t4:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

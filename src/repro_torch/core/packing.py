@@ -2,8 +2,9 @@
 ``repro.core.packing``).
 
 A "lane" is one slot of a stacked axis: co-resident tasks (or requests, or
-the layers of a stack) are index ``i`` of every leaf of a nested dict of
-tensors. ``axis`` names that axis, one int for every leaf or a tree of ints
+the layers of a stack) are index ``i`` of every leaf of a tree of tensors:
+nested dicts and lists, as the reference's pytrees (ResNet's stages are
+lists). ``axis`` names that axis, one int for every leaf or a tree of ints
 shaped as the tree; the reference always stacks on axis 0, and the serving
 pool stacks lanes on the batch axis of the per-layer caches
 (``Model.cache_lane_axes``). Reads return views; ``tree_set_lane`` writes
@@ -47,23 +48,30 @@ import torch
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of dicts and lists (tuples are leaves)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
-    """Leaves in sorted-key order (the reference's pytree order)."""
+    """Leaves in the reference's pytree order: dict keys sorted, list items
+    in order."""
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
     return [tree]
 
 
 def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
     """The inverse of ``tree_leaves``: ``leaves`` put back into the dict
-    structure of ``like``. (No recursive closure: its reference cycle would
-    keep the leaves alive until the garbage collector runs.)"""
+    and list structure of ``like``. (No recursive closure: its reference
+    cycle would keep the leaves alive until the garbage collector runs.)"""
     return _fill(like, iter(leaves))
 
 
@@ -71,12 +79,15 @@ def _fill(like: Any, it) -> Any:
     if isinstance(like, dict):
         out = {k: _fill(like[k], it) for k in sorted(like)}
         return {k: out[k] for k in like}
+    if isinstance(like, list):
+        return [_fill(v, it) for v in like]
     return next(it)
 
 
 def _axes(axis: Any, tree: Any) -> Any:
     """``axis`` as a tree of ints shaped as ``tree``."""
-    return axis if isinstance(axis, dict) else tree_map(lambda _: axis, tree)
+    return (axis if isinstance(axis, (dict, list))
+            else tree_map(lambda _: axis, tree))
 
 
 def stack_trees(trees: Sequence[Any], axis: Any = 0) -> Any:

@@ -1,7 +1,8 @@
-"""Attention: GQA, causal/bidirectional/sliding-window, ring KV cache.
+"""Attention: GQA, causal/bidirectional/sliding-window, ring KV cache,
+cross-attention onto an encoder memory, RoPE and M-RoPE.
 
-Port of the self-attention modes of ``repro.models.attention``. Prefill and
-training paths, selected by ``impl``:
+Port of ``repro.models.attention``. Self-attention's prefill and training
+paths, selected by ``impl``:
   * ``"kernel"``  — ``kernels.ops.flash_attention``: the Hopper kernel on a
                     CUDA tensor, its plain version on a CPU tensor.
                     Default on ``cuda``.
@@ -10,7 +11,8 @@ training paths, selected by ``impl``:
   * ``"plain"``   — the kernel's plain version called directly, on any
                     device (the yardstick the card holds the kernel to).
 
-Decode (one token against a cache) always runs ``sdpa_decode``.
+Decode (one token against a cache) always runs ``sdpa_decode``, and
+cross-attention always ``sdpa_chunked``, as in the reference.
 
 The KV cache is updated IN PLACE (``index_put_`` / slice assignment into the
 cache tensors) where the reference returns an updated copy: the caches of a
@@ -122,29 +124,62 @@ def sdpa_decode(q, k_cache, v_cache, valid):
     return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
+def project_kv(params: dict, ctx, num_kv_heads: int, head_dim: int) -> tuple:
+    """K/V projections of an encoder memory (no rope). ctx (B, Sk, d)."""
+    B, Sk, _ = ctx.shape
+    cdt = ctx.dtype
+    k = (ctx @ params["w_k"].to(cdt)).reshape(B, Sk, num_kv_heads, head_dim)
+    v = (ctx @ params["w_v"].to(cdt)).reshape(B, Sk, num_kv_heads, head_dim)
+    return k, v
+
+
+def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
+    """Attention of x onto precomputed K/V (cross-attention): every key is
+    visible, through ``sdpa_chunked`` on every device, as in the
+    reference (which never takes its kernel here)."""
+    B, S, _ = x.shape
+    cdt = x.dtype
+    q = (x @ params["w_q"].to(cdt)).reshape(B, S, num_heads, head_dim)
+    out = sdpa_chunked(q, k, v, causal=False, window=0)
+    out = out.reshape(B, S, num_heads * head_dim)
+    return out @ params["w_o"].to(cdt)
+
+
 def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
                     head_dim: int, positions, rope_theta: float,
+                    mrope_positions=None,
                     causal: bool = True, window: int = 0,
                     kv_cache: Optional[dict] = None,
                     impl: Optional[str] = None,
-                    prob_dtype=torch.float32) -> tuple:
+                    prob_dtype=torch.float32, kv_ctx=None) -> tuple:
     """Returns (out, kv_cache).
 
     Modes:
       * kv_cache is None              -> self-attention over x (train/prefill)
       * kv_cache given, x is 1 token  -> cached decode step (ring write)
       * kv_cache given, x longer      -> prefill, writing the cache
+      * kv_ctx given                  -> cross-attention onto kv_ctx (no
+                                         rope, no cache; returns None)
     kv_cache = {"k": (B,Smax,Hkv,D), "v": ..., "len": (B,) int32,
-    "pos": (B,Smax) int32}, updated in place.
+    "pos": (B,Smax) int32}, updated in place. ``mrope_positions`` (3, B, S)
+    rotates q and k by M-RoPE instead of RoPE; the cache's slots and
+    validity still come from ``positions``.
     """
     impl = impl or default_impl(x.device)
     B, S, _ = x.shape
     cdt = x.dtype
+    if kv_ctx is not None:
+        k, v = project_kv(params, kv_ctx, num_kv_heads, head_dim)
+        return attn_with_kv(params, x, k, v, num_heads, head_dim), None
     q = (x @ params["w_q"].to(cdt)).reshape(B, S, num_heads, head_dim)
     k = (x @ params["w_k"].to(cdt)).reshape(B, S, num_kv_heads, head_dim)
     v = (x @ params["w_v"].to(cdt)).reshape(B, S, num_kv_heads, head_dim)
-    q = layers.apply_rope(q, positions, rope_theta)
-    k = layers.apply_rope(k, positions, rope_theta)
+    if mrope_positions is not None:
+        q = layers.apply_mrope(q, mrope_positions, rope_theta)
+        k = layers.apply_mrope(k, mrope_positions, rope_theta)
+    else:
+        q = layers.apply_rope(q, positions, rope_theta)
+        k = layers.apply_rope(k, positions, rope_theta)
 
     if kv_cache is not None and S == 1:  # decode step (ring write: len % Smax)
         Smax = kv_cache["k"].shape[1]

@@ -23,7 +23,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device) -> Any:
-    """Nested dict of numpy arrays -> the same dict of tensors on ``device``."""
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors on
+    ``device``."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     return _to_tensor(tree, device)

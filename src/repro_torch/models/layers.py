@@ -37,6 +37,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics; ``var`` is the population variance (``jnp.var``)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim//2,)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
@@ -48,6 +58,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotate split halves. x: (B, S, H, D); positions: (B, S) int."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)             # (D/2,)
     ang = positions[..., None].float() * freqs                   # (B, S, D/2)
+    cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# M-RoPE (Qwen2-VL): head_dim split into (t, h, w) sections, each section
+# rotated by its own position stream. Section split follows the paper's
+# 16/24/24 ratio scaled to head_dim/2.
+MROPE_SECTIONS = (2, 3, 3)  # ratios; scaled so sum == head_dim//2
+
+
+def mrope_section_sizes(head_dim: int) -> tuple:
+    half = head_dim // 2
+    unit = half // sum(MROPE_SECTIONS)
+    sizes = [r * unit for r in MROPE_SECTIONS]
+    sizes[-1] += half - sum(sizes)
+    return tuple(sizes)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions_thw: (3, B, S) int (t/h/w streams). The
+    first sizes[0] frequencies take their position from t, then h, then
+    w."""
+    D = x.shape[-1]
+    freqs = rope_freqs(D, theta, x.device)                       # (D/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(mrope_section_sizes(D), device=x.device))   # (D/2,)
+    pos_per_freq = positions_thw.float()[sec_id]                 # (D/2, B, S)
+    ang = pos_per_freq.movedim(0, -1) * freqs                    # (B, S, D/2)
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

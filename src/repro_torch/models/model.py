@@ -1,16 +1,28 @@
-"""Public model API for the decoder LM families: dense, moe, ssm and hybrid
-(port of ``repro.models.model``; the encdec and vlm families raise
-``NotImplementedError``, ROADMAP A.7).
+"""Public model API for every family: dense, moe, ssm, hybrid, vlm and
+encdec (port of ``repro.models.model``).
 
 Batch layouts (integer tensors):
-  train    {"tokens": (B,S), "labels": (B,S)}
-  prefill  {"tokens": (B,S)}
-  decode   {"tokens": (B,1), "pos": (B,)}
+  train   LM      {"tokens": (B,S), "labels": (B,S)}
+          vlm     {"embeds": (B,S,d) compute dtype, "mrope_pos": (3,B,S),
+                   "labels": (B,S)}
+          encdec  {"enc_embeds": (B,Se,d) compute dtype, "tokens": (B,S),
+                   "labels": (B,S)}
+  prefill         same minus labels
+  decode  LM      {"tokens": (B,1), "pos": (B,)}
+          vlm     + {"mrope_pos": (3,B,1)}
+          encdec  {"tokens": (B,1), "pos": (B,)} (cross K/V cached)
+
+The vlm's "embeds" stand for its vision frontend's output (text rows are
+embedding rows), and "mrope_pos" holds its (t, h, w) position streams;
+encdec's "enc_embeds" stand for its speech frontend's frames.
 
 The decode cache is stacked on a leading L axis with the batch (the serving
-pool's lanes) on axis 1: per layer a ring KV cache for dense and moe, and
-for ssm the Mamba2 decode state {"conv": (L,B,w-1,ch) compute dtype, "ssm":
-(L,B,nh,hd,N) f32}. The hybrid's keeps the reference's nested layout,
+pool's lanes) on axis 1: per layer a ring KV cache for dense, moe and vlm,
+and for ssm the Mamba2 decode state {"conv": (L,B,w-1,ch) compute dtype,
+"ssm": (L,B,nh,hd,N) f32}. The encdec cache is {"self": ring KV caches,
+"cross_k", "cross_v": (L,B,max_len,Hkv,D)}; its prefill replaces the
+cross leaves with the encoder memory's projections, (L,B,Se,Hkv,D), which
+decode attends over. The hybrid's keeps the reference's nested layout,
 {"ssm": (n_super, period, B, ...), "attn": (n_super, B, ...), "tail":
 (n_tail, B, ...)}, so its Mamba2 states have the batch on axis 2
 (``cache_lane_axes``). An ssm or hybrid prefill needs S % min(chunk, S) ==
@@ -29,13 +41,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.transformer import ParallelCtx
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the block kind each family's (decoder) stack runs
+_KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+          "encdec": "cross", "hybrid": None}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,10 +67,8 @@ def resolve_device(device=None) -> torch.device:
 class Model:
     def __init__(self, cfg: ModelConfig, pctx: Optional[ParallelCtx] = None,
                  window: Optional[int] = None, device=None):
-        if cfg.family not in _FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only the dense, moe, ssm and "
-                f"hybrid families are ported (ROADMAP A.7)")
+        if cfg.family not in _KINDS:
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.pctx = pctx or ParallelCtx()
         self.window = cfg.sliding_window if window is None else window
@@ -83,23 +95,45 @@ class Model:
                                              self.pdt)
         if cfg.family == "hybrid":
             p["hybrid"] = transformer.init_hybrid(generator, cfg, self.pdt)
-        else:
-            p["blocks"] = transformer.init_stack(generator, cfg, cfg.family,
-                                                 cfg.num_layers, self.pdt)
+            return p
+        if cfg.family == "encdec":
+            p["encoder"] = transformer.init_stack(
+                generator, cfg, "dense", cfg.num_encoder_layers, self.pdt)
+            p["enc_ln"] = torch.ones((cfg.d_model,), dtype=self.pdt,
+                                     device=generator.device)
+        p["blocks"] = transformer.init_stack(generator, cfg, self._kind(),
+                                             cfg.num_layers, self.pdt)
         return p
 
     # ------------------------------------------------------------- backbone
-    def _embed_in(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (h, positions)."""
-        tok = batch["tokens"]
-        B, S = tok.shape
-        h = params["embed"][tok].to(self.cdt)
-        steps = torch.arange(S, device=tok.device)
+    def _kind(self) -> str:
+        return _KINDS[self.cfg.family]
+
+    def _encode(self, params, enc_embeds) -> torch.Tensor:
+        """Bidirectional encoder over precomputed frame embeddings, then
+        the final ``enc_ln`` RMSNorm."""
+        B, Se, _ = enc_embeds.shape
+        pos = torch.arange(Se, device=enc_embeds.device).expand(B, Se)
+        h, _, _ = transformer.run_stack(
+            params["encoder"], enc_embeds.to(self.cdt), self.cfg, "dense",
+            positions=pos, causal=False, pctx=self.pctx)
+        return layers.rms_norm(h, params["enc_ln"], self.cfg.norm_eps)
+
+    def _embed_in(self, params, batch) -> Tuple[torch.Tensor, ...]:
+        """Returns (h, positions, mrope_positions or None)."""
+        if "embeds" in batch:  # vlm stub frontend
+            h = batch["embeds"].to(self.cdt)
+            B, S, _ = h.shape
+        else:
+            tok = batch["tokens"]
+            B, S = tok.shape
+            h = params["embed"][tok].to(self.cdt)
+        steps = torch.arange(S, device=h.device)
         if "pos" in batch:
             positions = batch["pos"][:, None] + steps[None, :]
         else:
             positions = steps.expand(B, S)
-        return h, positions
+        return h, positions, batch.get("mrope_pos")
 
     def _head(self, params, h) -> torch.Tensor:
         h = layers.rms_norm(h, params["final_ln"], self.cfg.norm_eps)
@@ -108,24 +142,30 @@ class Model:
         return (h @ w).float()
 
     def _backbone(self, params, h, positions, caches=None,
-                  route_rows: bool = False):
+                  route_rows: bool = False, mrope_positions=None,
+                  enc_memory=None):
         """Returns (h, caches, aux)."""
         if self.cfg.family == "hybrid":
             return transformer.run_hybrid(
                 params["hybrid"], h, self.cfg, positions=positions,
                 window=self.window, caches=caches, pctx=self.pctx)
         return transformer.run_stack(
-            params["blocks"], h, self.cfg, self.cfg.family,
+            params["blocks"], h, self.cfg, self._kind(),
             positions=positions, window=self.window, causal=True,
-            caches=caches, pctx=self.pctx, route_rows=route_rows)
+            caches=caches, pctx=self.pctx, route_rows=route_rows,
+            mrope_positions=mrope_positions, enc_memory=enc_memory)
 
     # ----------------------------------------------------------------- loss
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """(total, {"loss", "ce", "aux"}): mean token cross-entropy over
         the labels. ``aux`` is the sum of the MoE blocks' router losses, 0
         for the other families; the total is ce + router_aux_coef * aux."""
-        h, positions = self._embed_in(params, batch)
-        h, _, aux = self._backbone(params, h, positions)
+        h, positions, mrope = self._embed_in(params, batch)
+        enc_memory = (self._encode(params, batch["enc_embeds"])
+                      if self.cfg.is_encdec else None)
+        h, _, aux = self._backbone(params, h, positions,
+                                   mrope_positions=mrope,
+                                   enc_memory=enc_memory)
         logits = self._head(params, h)
         ce = layers.cross_entropy_loss(logits, batch["labels"])
         coef = self.cfg.moe.router_aux_coef if self.cfg.moe else 0.0
@@ -133,9 +173,12 @@ class Model:
         return total, {"loss": total, "ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
-    def make_cache(self, batch_size: int, max_len: int) -> Dict[str, Any]:
-        """Decode cache, every leaf stacked on leading layer axes."""
+    def make_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, Any]:
+        """Decode cache, every leaf stacked on leading layer axes, on
+        ``device`` (the model's by default; ``meta`` allocates nothing)."""
         cfg = self.cfg
+        device = self.device if device is None else torch.device(device)
         attn_len = min(max_len, self.window) if self.window else max_len
 
         def stack(one, *prefix):
@@ -145,11 +188,11 @@ class Model:
         def kv(*prefix):
             return stack(attention.init_kv_cache(
                 batch_size, attn_len, cfg.num_kv_heads,
-                cfg.resolved_head_dim, self.cdt, self.device), *prefix)
+                cfg.resolved_head_dim, self.cdt, device), *prefix)
 
         def states(*prefix):
             return stack(ssm.init_decode_state(
-                batch_size, cfg.d_model, cfg.ssm, self.cdt, self.device),
+                batch_size, cfg.d_model, cfg.ssm, self.cdt, device),
                 *prefix)
 
         if cfg.family == "ssm":
@@ -160,6 +203,12 @@ class Model:
             if n_tail:
                 c["tail"] = states(n_tail)
             return c
+        if cfg.family == "encdec":
+            cross = lambda: torch.zeros(
+                (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim), dtype=self.cdt, device=device)
+            return {"self": kv(cfg.num_layers), "cross_k": cross(),
+                    "cross_v": cross()}
         return kv(cfg.num_layers)
 
     def cache_lane_axes(self) -> Dict[str, Any]:
@@ -176,14 +225,20 @@ class Model:
             if transformer.hybrid_layout(cfg)[2]:
                 c["tail"] = states
             return c
+        if cfg.family == "encdec":
+            return {"self": kv, "cross_k": 1, "cross_v": 1}
         return kv
 
     def prefill(self, params, batch, max_len: int):
         """Full-sequence forward filling a fresh cache. Returns
         (last_logits (B,V) f32, cache)."""
-        h, positions = self._embed_in(params, batch)
+        h, positions, mrope = self._embed_in(params, batch)
         cache = self.make_cache(h.shape[0], max_len)
-        h, cache, _ = self._backbone(params, h, positions, caches=cache)
+        enc_memory = (self._encode(params, batch["enc_embeds"])
+                      if self.cfg.is_encdec else None)
+        h, cache, _ = self._backbone(params, h, positions, caches=cache,
+                                     mrope_positions=mrope,
+                                     enc_memory=enc_memory)
         logits = self._head(params, h[:, -1:])
         return logits[:, 0], cache
 
@@ -197,9 +252,39 @@ class Model:
         h = params["embed"][tok].to(self.cdt)
         positions = batch["pos"][:, None]                  # (B,1)
         h, cache, _ = self._backbone(params, h, positions, caches=cache,
-                                     route_rows=route_rows)
+                                     route_rows=route_rows,
+                                     mrope_positions=batch.get("mrope_pos"))
         logits = self._head(params, h)
         return logits[:, 0], cache
+
+    # --------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeSpec) -> Dict[str, Any]:
+        """Stand-ins for the batch of a shape cell: tensors on the ``meta``
+        device (the reference's ``jax.ShapeDtypeStruct``), so nothing is
+        allocated. For decode shapes, also the cache under "_cache"
+        (``make_cache`` on ``meta``)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, d = torch.int32, cfg.d_model
+        sds = lambda shp, dtype: torch.empty(shp, dtype=dtype, device="meta")
+        if shape.kind in ("train", "prefill"):
+            b = {"tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+            if cfg.family == "vlm":
+                b = {"embeds": sds((B, S, d), self.cdt),
+                     "mrope_pos": sds((3, B, S), i32),
+                     "labels": sds((B, S), i32)}
+            if cfg.is_encdec:
+                b = {"enc_embeds": sds((B, S, d), self.cdt),
+                     "tokens": sds((B, S), i32), "labels": sds((B, S), i32)}
+            if shape.kind == "prefill":
+                b.pop("labels")
+            return b
+        # decode: one token + pre-filled cache
+        b = {"tokens": sds((B, 1), i32), "pos": sds((B,), i32)}
+        if cfg.family == "vlm":
+            b["mrope_pos"] = sds((3, B, 1), i32)
+        b["_cache"] = self.make_cache(B, S, device="meta")
+        return b
 
 
 def build_model(cfg: ModelConfig, pctx: Optional[ParallelCtx] = None,

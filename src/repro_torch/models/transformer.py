@@ -1,6 +1,6 @@
-"""Decoder-only stacks of the dense, moe and ssm kinds, and the zamba2-style
-hybrid (Mamba2 backbone + one SHARED attention block applied periodically):
-port of those branches of ``repro.models.transformer``.
+"""Transformer stacks of the dense, moe, ssm and cross (encoder-decoder
+decoder) kinds, and the zamba2-style hybrid (Mamba2 backbone + one SHARED
+attention block applied periodically): port of ``repro.models.transformer``.
 
 Per-layer params and caches are stacked on a leading L axis, as in the
 reference; its ``lax.scan`` over that axis becomes a Python loop that takes
@@ -14,7 +14,9 @@ inputs, and runs it again inside the backward. It is built the way
 rule), so it works in a lane pool's ``vmap(grad(...))``;
 ``torch.utils.checkpoint`` does not (saved-tensor hooks, or no
 ``setup_context``). It applies only where autograd needs the block's
-result, so every no-grad path (serving) runs as before. Remat with grad
+result, so every no-grad path (serving) runs as before. A cross block's
+encoder memory rides through it as a tensor input, so its gradient reaches
+the encoder; M-RoPE positions ride as an integer input. Remat with grad
 on a moe block or a hybrid stack raises: ``_Recompute`` carries a block's x
 and not its router loss, so the loss's gradient into the router would be
 lost (the moe and hybrid training path, ROADMAP A.12).
@@ -79,6 +81,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if kind == "dense":
         p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
                                    dtype)
+    elif kind == "cross":  # encoder-decoder decoder block
+        p["cross_attn"] = attention.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, hd, dtype)
+        p["ln_cross"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                                   dtype)
     elif kind == "moe":
         p["moe"] = moe.init_moe(gen, cfg.d_model, cfg.moe, dtype)
         if cfg.moe.dense_residual:
@@ -103,12 +111,14 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, kind: str, n: int,
 
 
 def attn_block_fwd(p: dict, x, cfg: ModelConfig, *, positions, window: int,
-                   causal: bool, cache=None, pctx: ParallelCtx):
+                   causal: bool, cache=None, pctx: ParallelCtx,
+                   mrope_positions=None):
     return attention.attention_block(
         p["attn"], layers.rms_norm(x, p["ln1"], cfg.norm_eps),
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, positions=positions,
-        rope_theta=cfg.rope_theta, causal=causal, window=window,
+        rope_theta=cfg.rope_theta, mrope_positions=mrope_positions,
+        causal=causal, window=window,
         kv_cache=cache, impl=pctx.attn_impl,
         prob_dtype=torch.bfloat16 if pctx.score_bf16 else torch.float32)
 
@@ -120,11 +130,17 @@ def _write(cache: dict, new: dict) -> None:
 
 def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
               window: int = 0, causal: bool = True, cache=None,
-              pctx: ParallelCtx, route_rows: bool = False):
-    """One block of ``kind`` ("dense", "moe" or "ssm"). Returns (x, cache,
-    aux): aux is the MoE router loss (0 for the other kinds); a given cache
-    is updated in place. ``route_rows``: a moe block routes each batch row
-    alone (``moe.moe_ffn``)."""
+              pctx: ParallelCtx, route_rows: bool = False,
+              mrope_positions=None, enc_memory=None):
+    """One block of ``kind`` ("dense", "moe", "ssm" or "cross"). Returns
+    (x, cache, aux): aux is the MoE router loss (0 for the other kinds); a
+    given cache is updated in place. ``route_rows``: a moe block routes
+    each batch row alone (``moe.moe_ffn``). A cross block's cache is
+    {"self": ring KV cache, "cross_k", "cross_v"}: in decode (no
+    ``enc_memory``) it attends over the cached cross K/V; in prefill it
+    projects ``enc_memory`` and returns a new dict holding the projections
+    as fresh leaves of the memory's length (the stacked buffer may be
+    another length: ``run_stack`` replaces it)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         h = layers.rms_norm(x, p["ln"], cfg.norm_eps)
@@ -141,9 +157,24 @@ def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
                                         impl=pctx.attn_impl)
             _write(cache, new)
         return x + y, cache, aux
-    out, cache = attn_block_fwd(p, x, cfg, positions=positions, window=window,
-                                causal=causal, cache=cache, pctx=pctx)
+    self_cache = cache["self"] if kind == "cross" and cache is not None \
+        else cache
+    out, _ = attn_block_fwd(p, x, cfg, positions=positions, window=window,
+                            causal=causal, cache=self_cache, pctx=pctx,
+                            mrope_positions=mrope_positions)
     x = x + out
+    if kind == "cross":
+        hd = cfg.resolved_head_dim
+        if cache is not None and enc_memory is None:      # decode: cached KV
+            ck, cv = cache["cross_k"], cache["cross_v"]
+        else:                                             # train / prefill
+            ck, cv = attention.project_kv(p["cross_attn"], enc_memory,
+                                          cfg.num_kv_heads, hd)
+            if cache is not None:
+                cache = {**cache, "cross_k": ck, "cross_v": cv}
+        x = x + attention.attn_with_kv(
+            p["cross_attn"], layers.rms_norm(x, p["ln_cross"], cfg.norm_eps),
+            ck, cv, cfg.num_heads, hd)
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if kind == "moe":
         y, aux = moe.moe_ffn(p["moe"], h, cfg.moe,
@@ -163,12 +194,13 @@ def _depth(tree) -> int:
 
 
 class _Recompute(torch.autograd.Function):
-    """``fn(positions, *tensors)`` whose backward recomputes ``fn`` from its
+    """``fn(*ints, *tensors)`` whose backward recomputes ``fn`` from its
     saved inputs (``torch.func.vjp`` over ``tensors``) instead of keeping
-    its intermediates. ``positions`` (integer) is an input but gets no
-    gradient; ``fn`` closes over every non-tensor argument. A tensor made
-    inside the transforms may not be closed over: the Function's forward
-    runs a level below them.
+    its intermediates. ``ints``, the first ``n_int`` inputs (integer:
+    positions, M-RoPE positions), are inputs but get no gradient; ``fn``
+    closes over every non-tensor argument. A tensor made inside the
+    transforms may not be closed over: the Function's forward runs a level
+    below them.
 
     The backward recomputes from detached inputs: ``torch.func.grad``
     differentiates with ``create_graph=True``, so a recompute from the
@@ -179,39 +211,55 @@ class _Recompute(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(fn, positions, *tensors):
-        return fn(positions, *tensors)
+    def forward(fn, n_int, *inputs):
+        return fn(*inputs)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.fn = inputs[0]
-        ctx.save_for_backward(*inputs[1:])
+        ctx.fn, ctx.n_int = inputs[:2]
+        ctx.save_for_backward(*inputs[2:])
 
     @staticmethod
     def backward(ctx, g):
-        positions, *tensors = (t.detach() for t in ctx.saved_tensors)
-        _, vjp = torch.func.vjp(lambda *t: ctx.fn(positions, *t), *tensors)
-        return (None, None, *vjp(g.detach()))
+        saved = [t.detach() for t in ctx.saved_tensors]
+        ints, tensors = saved[:ctx.n_int], saved[ctx.n_int:]
+        _, vjp = torch.func.vjp(lambda *t: ctx.fn(*ints, *t), *tensors)
+        return (None, None, *([None] * ctx.n_int), *vjp(g.detach()))
 
 
 def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
-                 **kw):
-    """``block_fwd``'s x under ``_Recompute``: the block's params ride as a
-    flat tuple of tensors, window, impl and the rest in the closure."""
-    def fn(positions, x, *leaves):
-        out, _, _ = block_fwd(tree_unflatten(p, leaves), x, cfg, kind,
-                              positions=positions, **kw)
+                 mrope_positions=None, enc_memory=None, **kw):
+    """``block_fwd``'s x under ``_Recompute``: the positions (and M-RoPE
+    positions) ride as integer inputs, x (and the encoder memory) and the
+    block's params as a flat tuple of tensors, window, impl and the rest in
+    the closure."""
+    ints = (positions,) if mrope_positions is None else (positions,
+                                                         mrope_positions)
+    mems = () if enc_memory is None else (enc_memory,)
+
+    def fn(*args):
+        n = len(ints)
+        x, rest = args[n], args[n + 1:]
+        out, _, _ = block_fwd(
+            tree_unflatten(p, rest[len(mems):]), x, cfg, kind,
+            positions=args[0], mrope_positions=args[1] if n == 2 else None,
+            enc_memory=rest[0] if mems else None, **kw)
         return out
-    return _Recompute.apply(fn, positions, x, *tree_leaves(p))
+    return _Recompute.apply(fn, len(ints), *ints, x, *mems, *tree_leaves(p))
 
 
 def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
               positions, window: int = 0, causal: bool = True,
               caches: Any = None, pctx: ParallelCtx,
-              route_rows: bool = False):
+              route_rows: bool = False, mrope_positions=None,
+              enc_memory=None):
     """Run the L stacked layers in order. Returns (x, caches, aux): aux is
     the sum of the blocks' router losses; ``caches`` (stacked on L) is
-    updated in place; ``route_rows`` as in ``block_fwd``. With ``cfg.remat`` and no caches, a block whose
+    updated in place; ``route_rows`` as in ``block_fwd``. A cross stack's
+    prefill (``enc_memory`` and caches given) replaces the caches'
+    "cross_k"/"cross_v" with the layers' projections of the memory,
+    stacked (L, B, Se, Hkv, D), as the reference's scan returns them: a
+    decode step attends over exactly those Se rows. With ``cfg.remat`` and no caches, a block whose
     result autograd needs runs under ``_Recompute``; a Mamba2 block there
     takes the scan autograd takes ("chunked", as the reference's model
     always does) in its forward too, where grad mode is off."""
@@ -222,16 +270,23 @@ def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
         pctx = dataclasses.replace(pctx,
                                    attn_impl=ssm.scan_impl(x.device, True))
     kw = dict(positions=positions, window=window, causal=causal, pctx=pctx,
-              route_rows=route_rows)
+              route_rows=route_rows, mrope_positions=mrope_positions,
+              enc_memory=enc_memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cross = []
     for i in range(_depth(params_stack)):
         if remat:
             x = _remat_block(lane_slice(params_stack, i), x, cfg, kind, **kw)
             continue
         cache_l = None if caches is None else lane_slice(caches, i)
-        x, _, a = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
-                            cache=cache_l, **kw)
+        x, cache_l, a = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
+                                  cache=cache_l, **kw)
         aux = aux + a
+        if kind == "cross" and caches is not None and enc_memory is not None:
+            cross.append((cache_l["cross_k"], cache_l["cross_v"]))
+    if cross:
+        caches["cross_k"] = torch.stack([k for k, _ in cross])
+        caches["cross_v"] = torch.stack([v for _, v in cross])
     return x, caches, aux
 
 

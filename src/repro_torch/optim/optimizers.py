@@ -1,5 +1,5 @@
-"""Optimizers as pure functions on nested dicts of tensors (port of
-``repro.optim.optimizers``).
+"""Optimizers as pure functions on nested dicts and lists of tensors (port
+of ``repro.optim.optimizers``).
 
 API as the reference's (optax-like): ``opt.init(params) -> state``;
 ``opt.update(grads, state, params, lr) -> (updates, state)``. Nothing is
@@ -23,12 +23,16 @@ class Optimizer(NamedTuple):
 def _map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def _leaves(tree: Any) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 

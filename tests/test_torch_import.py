@@ -95,6 +95,50 @@ def test_moe_hybrid_slice_modules_load_no_jax(module):
     _alone_loads_no_jax(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.resnet", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.convert"])
+def test_encdec_vlm_resnet_slice_modules_load_no_jax(module):
+    """Each module of the encdec, vlm and ResNet slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
+def test_encdec_vlm_resnet_paths_load_no_jax():
+    """The vlm and encdec paths of ``models.model`` (prefill, a decode
+    step, ``input_specs``) and ResNet's loss, run on the CPU in a fresh
+    interpreter, load no JAX and nothing of ``repro``."""
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import resnet\n"
+        "from repro_torch.models.model import Model\n"
+        "g = lambda: torch.Generator().manual_seed(0)\n"
+        "for name, b in (('qwen2-vl-7b', {'embeds': torch.zeros(1, 4, 64),\n"
+        "                 'mrope_pos': torch.zeros(3, 1, 4, dtype=torch.long)}),\n"
+        "                ('seamless-m4t-medium', {'enc_embeds':\n"
+        "                 torch.zeros(1, 5, 64),\n"
+        "                 'tokens': torch.zeros(1, 3, dtype=torch.long)})):\n"
+        "    m = Model(configs.get(name).reduced(), device='cpu')\n"
+        "    p = m.init(g())\n"
+        "    _, c = m.prefill(p, b, 8)\n"
+        "    step = {'tokens': torch.zeros(1, 1, dtype=torch.long),\n"
+        "            'pos': torch.full((1,), 4)}\n"
+        "    if 'embeds' in b: step['mrope_pos'] = torch.full((3, 1, 1), 4)\n"
+        "    m.decode_step(p, step, c)\n"
+        "    m.input_specs(configs.SHAPES[2])\n"
+        "rp = resnet.init(g(), 0.25, 10, device='cpu')\n"
+        "resnet.loss(rp, {'image': torch.zeros(1, 8, 8, 3),\n"
+        "                 'label': torch.zeros(1, dtype=torch.long)})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps({'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(res.stdout.strip().splitlines()[-1])["bad"] == []
+
+
 @pytest.mark.parametrize("path", CHECKED_FILES)
 def test_source_imports_no_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())

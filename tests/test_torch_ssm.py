@@ -5,6 +5,8 @@ initial state, the recurrent step, the causal conv, the full block and its
 decode step (with the prefill-then-decode continuity test of
 tests/test_ssm_attention.py), and prefill / decode of the reduced
 mamba2-130m under each sequence-mixer path."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -337,8 +339,12 @@ def test_prefill_rejects_a_seq_that_is_not_a_chunk_multiple(ref_model):
 
 @pytest.mark.parametrize("name", ["qwen2-vl-7b", "seamless-m4t-medium"])
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Model(configs.get(name).reduced(), device="cpu")
+    """The last two families are ported: both configs build, and only a
+    family the reference does not know raises."""
+    Model(configs.get(name).reduced(), device="cpu")
+    unknown = dataclasses.replace(configs.get(name).reduced(), family="x")
+    with pytest.raises(ValueError, match="family"):
+        Model(unknown, device="cpu")
 
 
 @pytest.mark.parametrize("device,grad,want", [
