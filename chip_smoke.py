@@ -105,6 +105,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    job elapsed, speedup, bytes(1) x NPPN against the measured peak, each
    lane's losses against its task run alone, [profile] one pool step at
    NPPN 6;
+   [train-moe] and [train-hybrid]: ``run_sweep`` over DeepSeekMoE-16B
+   (routed dispatch) and Zamba2-7B at their published widths, remat on,
+   AdamW, 4 tasks of skewed budgets on a refilled pool, the depth the
+   deepest of two at which ``auto_nppn`` packs 2 lanes within 85 % of the
+   card (logged): B3's launches read around the sweep (2 an attention
+   block a pool step and a probe step: the forward and remat's recompute;
+   no B4 launch, a Mamba2 block trains through the chunked scan), each
+   task's losses against the task run alone, one lane's gradient (the
+   router's, with the aux term, or the shared block's) nonzero, remat's
+   one-lane held and gradient bytes against remat off, [profile] one pool
+   step (with the f32 expert casts' share for the moe); [roofline]
+   ``IntensityProfile.from_step`` of a 4-lane StableLM-2 decode step and
+   of one [train-moe] pool step, counted on the card and on ``meta``
+   (equal FLOPs and bytes), each report's row beside the step's measured
+   time, the decode step the more memory-bound, both profiles recorded by
+   admission through ``TriplesScheduler.submit(intensity_profile=...)``;
 8. the policy and durability layer on the paper's LLMapReduce use, a
    parametric study scoring 10 prompts of 1,024 tokens (each item's mean
    NLL) with full-width, full-depth StableLM-2 1.6B, B3's launches read
@@ -266,6 +282,29 @@ TRAIN_LM_TRAJ_RTOL = 5e-2
 # kernel's f32 body against sdpa_chunked, other GEMM orders): the [small]
 # phase's logit bound
 XDEV_LOSS_TOL = dict(rtol=1e-4, atol=1e-4)
+
+# [train-moe] and [train-hybrid]: DeepSeekMoE-16B and Zamba2-7B at their
+# published widths, remat on, AdamW, 4 tasks of skewed budgets on a
+# refilled pool. A lane holds f32 params, grads and two moments (16 B a
+# param), and a pool step holds its lanes' old and new state at once:
+# [train-lm]'s bytes(1), 19.73 GB, was twice its lane's 9.87 GB on an H100.
+# The depth is the deepest of these at which auto_nppn packs 2 lanes within
+# TRAIN_FAMILY_HBM_FRACTION of the card (tried in order; the phase fails
+# if none does): DeepSeekMoE 1 layer is 1.007 B params (the embedding and
+# head of 102,400 x 2048 are 419 M of them), 2 layers 1.595 B; Zamba2 9
+# layers (one superblock of 6 Mamba2 blocks and the shared block, and a
+# tail of 3) 1.137 B, 6 layers (no tail) 0.903 B. The budget leaves room
+# for what the probe does not hold: run_sweep's template (one lane's
+# params) and the allocator's fragmentation (5.23 GiB reserved and
+# unallocated when a 2-lane DeepSeekMoE pool packed at 90 % ran out of
+# memory, its executor then still holding a finished lane's copy)
+TRAIN_FAMILY_DEPTHS = {"deepseek-moe-16b": (2, 1), "zamba2-7b": (9, 6)}
+TRAIN_FAMILY_HBM_FRACTION = 0.85
+TRAIN_FAMILY_BUDGETS = (2, 3, 1, 2)
+TRAIN_FAMILY_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+# [roofline]: the decode step's 4 lanes sit after a prompt of this many
+# tokens ([serve]'s longest prompts are of this order)
+ROOFLINE_PROMPT = 512
 
 # phase 8: the parametric study scores 10 prompts of 1,024 tokens (numpy
 # seed 0) on full-width, full-depth StableLM-2 1.6B over a triples placement
@@ -501,18 +540,12 @@ def read_launches() -> dict:
 def attention_bound_ms(B, Sq, Sk, Hq, Hkv, D, causal, window, dtype):
     """Least time for the function on these inputs: the larger of the FLOPs
     of the unmasked (q, k) pairs at the dtype's peak and the bytes of q, k,
-    v read once and o written once at the memory rate."""
-    import torch
-    q_pos = torch.arange(Sq)[:, None]
-    k_pos = torch.arange(Sk)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool)
-    if causal:
-        mask &= q_pos >= k_pos
-    if window:
-        mask &= q_pos - k_pos < window
-    flops = 4 * B * Hq * D * int(mask.sum())
-    nbytes = (2 * B * Sq * Hq + 2 * B * Sk * Hkv) * D * dtype.itemsize
-    return bound_ms(flops, nbytes, PEAK_FLOPS[str(dtype)])
+    v read once and o written once at the memory rate
+    (``roofline.counting.attention_work``, which counts a step's B3
+    calls)."""
+    from repro_torch.roofline.counting import attention_work
+    return bound_ms(*attention_work(B, Sq, Sk, Hq, Hkv, D, causal, window,
+                                    dtype.itemsize), PEAK_FLOPS[str(dtype)])
 
 
 def _qkv(gen, B, Sq, Sk, Hq, Hkv, D, dtype):
@@ -772,6 +805,7 @@ def check_packed_gemm() -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import packed_gemm as pg
+    from repro_torch.roofline.counting import matmul_work
     gen = torch.Generator(device="cuda").manual_seed(1)
     mk = lambda *s, dt: torch.randn(*s, generator=gen, device="cuda").to(dt)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -835,9 +869,8 @@ def check_packed_gemm() -> dict:
         plain_ms = cuda_time_ms(lambda: pg.packed_gemm_plain(x, w))
         library_ms = cuda_time_ms(lambda: torch.bmm(x, w))
         library_dev_ms = device_ms(lambda: torch.bmm(x, w))
-        b_ms, b_by = bound_ms(2 * J * M * K * N,
-                              (J * M * K + J * K * N + J * M * N)
-                              * dt.itemsize, PEAK_FLOPS[str(dt)])
+        b_ms, b_by = bound_ms(*matmul_work(J, M, K, N, dt.itemsize),
+                              PEAK_FLOPS[str(dt)])
         timed[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": library_ms,
@@ -867,9 +900,12 @@ def check_packed_gemm() -> dict:
 
 
 def _norm_bound(x, w) -> tuple:
-    """RMSNorm: ~4 f32 operations per element; x and w read, out written."""
-    return bound_ms(4 * x.numel(), (2 * x.numel() + w.numel())
-                    * x.element_size(), PEAK_FLOPS["torch.float32"])
+    """RMSNorm (``roofline.counting.norm_work``): ~4 f32 operations per
+    element; x and w read, out written."""
+    from repro_torch.roofline.counting import norm_work
+    d = x.shape[-1]
+    return bound_ms(*norm_work(x.numel() // d, d, w.numel() // d,
+                               x.element_size()), PEAK_FLOPS["torch.float32"])
 
 
 def _routine(d: int, dtype) -> str:
@@ -1006,21 +1042,10 @@ def check_rmsnorm() -> list:
     return records
 
 
-def ssd_work(b, S, nh, hd, N, Q, itemsize) -> tuple:
-    """(f32 operations, bytes) of the SSD scan on these shapes: C·Bᵀ and
-    the intra-chunk product over the causal half of each chunk (j <= i),
-    the inter-chunk and state products in full; x, B, C read and y written
-    in their dtype, dt read and the state written in f32."""
-    nc, tri = S // Q, Q * (Q + 1) // 2
-    flops = b * nc * (2 * N * tri + 2 * nh * hd * tri + 4 * Q * N * nh * hd)
-    nbytes = ((2 * b * S * nh * hd + 2 * b * S * N) * itemsize
-              + 4 * (b * S * nh + nh + b * nh * hd * N))
-    return flops, nbytes
-
-
 def ssd_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
     """Least time for the SSD scan: its f32 operations at the f32 peak,
     against its bytes."""
+    from repro_torch.roofline.counting import ssd_work
     return bound_ms(*ssd_work(b, S, nh, hd, N, Q, itemsize),
                     PEAK_FLOPS["torch.float32"])
 
@@ -1029,6 +1054,7 @@ def ssd_tensor_core_bound_ms(b, S, nh, hd, N, Q, itemsize) -> tuple:
     """Least time for the same work on the route the kernel takes: each
     f32 product as three exact bf16 products at the bf16 tensor-core
     peak, against the same bytes."""
+    from repro_torch.roofline.counting import ssd_work
     flops, nbytes = ssd_work(b, S, nh, hd, N, Q, itemsize)
     return bound_ms(3 * flops, nbytes, PEAK_FLOPS["torch.bfloat16"])
 
@@ -2995,18 +3021,19 @@ def log_loss_gaps(what: str, losses: dict, ref: dict) -> float:
                for i, g in gaps.items())
 
 
-def log_remat_peaks(setting: str, peaks: dict) -> None:
+def log_remat_peaks(setting: str, peaks: dict,
+                    phase: str = "train-lm") -> None:
     """Log ``lm_peaks``' readings with remat (``peaks[True]``) against
     without (``peaks[False]``)."""
     for name, what in (("held", "held from forward to backward"),
                        ("gradient", "gradient peak"),
                        ("pool step", "pool step peak")):
         (pt, dt), (pf, df) = peaks[True][name], peaks[False][name]
-        log(f"[train-lm] {setting} {what}: {pt / 1e9:.3f} GB with remat "
+        log(f"[{phase}] {setting} {what}: {pt / 1e9:.3f} GB with remat "
             f"({dt / 1e9:.3f} above the pool), {pf / 1e9:.3f} GB without "
             f"({df / 1e9:.3f}); ratio {pt / pf:.3f} ({dt / df:.3f} above "
             f"the pool)")
-    log(f"[train-lm] {setting}: left by a pool step for the garbage "
+    log(f"[{phase}] {setting}: left by a pool step for the garbage "
         f"collector {peaks[True]['garbage'] / 1e9:.3f} GB with remat, "
         f"{peaks[False]['garbage'] / 1e9:.3f} without")
 
@@ -3179,6 +3206,370 @@ def train_lm(record: dict) -> None:
     record["train_lm_bound_ms"] = fa_bound
     del pool, batch
     train_lm_small()
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the moe and hybrid training paths, and the roofline
+# ---------------------------------------------------------------------------
+
+def _family_tasks():
+    from repro_torch.launch.sweep import SweepTask
+    return [SweepTask(id=i, lr=lr, seed=i, steps=b) for i, (lr, b) in
+            enumerate(zip(TRAIN_FAMILY_LRS, TRAIN_FAMILY_BUDGETS))]
+
+
+def family_depth(tag: str, full, bf, budget: float, policy):
+    """The deepest of ``TRAIN_FAMILY_DEPTHS`` at which ``auto_nppn`` packs
+    2 lanes of ``full`` cut to it: a sweep of two one-step tasks with
+    ``max_pack=2`` probes each depth. Returns (cfg, model)."""
+    from repro_torch.launch.sweep import SweepTask, run_sweep
+    from repro_torch.models import build_model
+    for L in TRAIN_FAMILY_DEPTHS[full.name]:
+        cfg = dataclasses.replace(full, num_layers=L)
+        model = build_model(cfg, device="cuda")
+        res = run_sweep(model, [SweepTask(id=i, lr=1e-3, seed=i, steps=1)
+                                for i in range(2)], batch_fn=bf, steps=1,
+                        hbm_budget=budget, max_pack=2, policy=policy)
+        d = res.decision
+        log(f"[{tag}] depth {L} of {full.num_layers} "
+            f"({cfg.param_count() / 1e9:.3f} B params): auto_nppn bytes(1) "
+            f"{d.profile_single.resident_bytes / 1e9:.3f} GB, bytes at the "
+            f"pack factor {d.profile.resident_bytes / 1e9:.3f} GB, pack "
+            f"factor {d.nppn_per_chip} ({d.reason}); probes run "
+            f"{list(d.measured)}, predicted {list(d.predicted)}")
+        if d.nppn_per_chip >= 2:
+            return cfg, model
+    raise AssertionError(f"[{tag}] auto_nppn packs 2 lanes at no depth of "
+                         f"{TRAIN_FAMILY_DEPTHS[full.name]}")
+
+
+def check_training_gradient(tag: str, model, bf) -> None:
+    """One lane's ``vmap(grad)`` of the loss on the card: finite, and the
+    parameters that only a working training path reaches get a gradient:
+    the router of every moe layer (through the combine weights and the aux
+    term, which must be nonzero), or the shared attention block of the
+    hybrid, summed over its applications."""
+    import torch
+    pool, batch = lm_pool(model, 1, bf)
+    grads, (loss, metrics) = torch.func.vmap(torch.func.grad_and_value(
+        model.loss, has_aux=True))(pool.params, batch)
+    if model.cfg.moe:
+        what = grads["blocks"]["moe"]["router"]
+        g = what.abs().sum((0, 2, 3))                      # by layer
+        aux = float(metrics["aux"][0])
+        log(f"[{tag}] one lane's gradient: loss {float(loss[0]):.4f}, ce "
+            f"{float(metrics['ce'][0]):.4f}, router aux {aux:.4f} (x "
+            f"{model.cfg.moe.router_aux_coef} in the loss); |router grad| "
+            f"by layer {[f'{v:.4g}' for v in g.tolist()]}")
+        if not (np.isfinite(aux) and aux > 0 and bool((g > 0).all())):
+            raise AssertionError(f"[{tag}] aux {aux} or a router gradient "
+                                 f"is zero")
+    else:
+        g = float(grads["hybrid"]["shared"]["attn"]["w_q"].abs().sum())
+        log(f"[{tag}] one lane's gradient: loss {float(loss[0]):.4f}; "
+            f"|shared attention w_q grad| {g:.4g}")
+        if not g > 0:
+            raise AssertionError(f"[{tag}] the shared block has no gradient")
+    if not all(bool(torch.isfinite(t).all()) for t in _leaves(grads)):
+        raise AssertionError(f"[{tag}] a gradient is not finite")
+    del pool, batch, grads
+
+
+def train_family(tag: str, arch: str, record: dict, b4: dict) -> tuple:
+    """``run_sweep`` over ``arch`` at its published width (depth from
+    ``family_depth``), remat on, AdamW, 4 tasks of skewed budgets on a
+    refilled pool packed by ``auto_nppn``, training through B3 (no B4: a
+    Mamba2 block trains through the chunked scan). Holds B3's launches to
+    2 an attention block a pool step and a probe step (the forward and
+    remat's recompute), each task's losses to the task run alone, a
+    nonzero router (shared block) gradient, and remat's one-lane peaks;
+    profiles one pool step. Returns (model, batch_fn, pack factor)."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.faults import FaultPolicy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.sweep import run_sweep
+    from repro_torch.models import build_model, transformer
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = configs.get(arch)
+    bf = lm_batch_fn(full, TRAIN_LM_SEQ, TRAIN_LM_BATCH)
+    total = torch.cuda.mem_get_info()[1]
+    budget = TRAIN_FAMILY_HBM_FRACTION * total
+    policy = FaultPolicy(oom_backoff=False)   # a pool failure fails the run
+    width = (f"{full.moe.num_experts} routed experts of "
+             f"{full.moe.expert_d_ff} + {full.moe.num_shared_experts} shared, "
+             f"top-{full.moe.top_k}, routed dispatch at capacity factor "
+             f"{full.moe.capacity_factor}" if full.moe else
+             f"Mamba2 {full.ssm.expand * full.d_model // full.ssm.head_dim} "
+             f"heads x {full.ssm.head_dim}, N {full.ssm.state_dim}, period "
+             f"{full.hybrid_attn_period}, d_ff {full.d_ff}")
+    log(f"[{tag}] {arch} at its published width: d_model {full.d_model}, "
+        f"{full.num_heads} heads x {full.resolved_head_dim}, {width}, vocab "
+        f"{full.vocab_size}, {full.param_dtype} params, {full.compute_dtype} "
+        f"compute, remat={full.remat}; hbm_budget {budget / 1e9:.2f} GB "
+        f"({TRAIN_FAMILY_HBM_FRACTION:.0%} of {total / 1e9:.2f} GB)")
+    cfg, model = family_depth(tag, full, bf, budget, policy)
+    if cfg.family == "hybrid":
+        n_super, period, n_tail = transformer.hybrid_layout(cfg)
+        n_attn = n_super
+        cut = (f"{n_super} superblock of {period} Mamba2 blocks and the "
+               f"shared block, a tail of {n_tail}")
+    else:
+        n_attn = cfg.num_layers
+        cut = f"{cfg.num_layers} moe layer(s)"
+    n = cfg.param_count()
+    log(f"[{tag}] depth cut from {full.num_layers} to {cfg.num_layers} "
+        f"layers ({cut}): {n / 1e9:.3f} B params, {16 * n / 1e9:.2f} GB of "
+        f"f32 params, grads and AdamW moments a lane "
+        f"({16 * full.param_count() / 1e9:.1f} GB at full depth)")
+
+    # the main path: counts set to 0 just before the sweep, read just after
+    tasks = _family_tasks()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_sweep(model, tasks, batch_fn=bf,
+                    steps=max(TRAIN_FAMILY_BUDGETS), hbm_budget=budget,
+                    policy=policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    by_body = dict(fa.flash_attention_cuda.launches_by_body)
+    b3, b4_calls = launches["flash_attention_fwd"], launches["ssd_scan"]
+    d = res.decision
+    probe_steps = len(d.measured)
+    want = (res.global_steps + probe_steps) * 2 * n_attn
+    log(f"[{tag}] {len(tasks)} tasks, lr {TRAIN_FAMILY_LRS[0]:.0e}.."
+        f"{TRAIN_FAMILY_LRS[-1]:.0e}, budgets {list(TRAIN_FAMILY_BUDGETS)}, "
+        f"batch {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}: wall {wall:.2f} s, pack "
+        f"{res.pack_factor} (bytes(1) "
+        f"{d.profile_single.resident_bytes / 1e9:.3f} GB, probes run "
+        f"{list(d.measured)}), global_steps {res.global_steps}, lane_steps "
+        f"{res.lane_steps}, refills {res.refills}, n_traces {res.n_traces}, "
+        f"backoffs {res.backoffs}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{launches}; flash_attention by body {by_body} against "
+        f"(global_steps {res.global_steps} + probe steps {probe_steps}) x 2 "
+        f"x {n_attn} attention blocks = {want}")
+    log(f"[{tag}] first/last loss per task: " + ", ".join(
+        f"{i}: {v[0]:.4f}/{v[-1]:.4f}" for i, v in res.losses.items()))
+    if res.pack_factor < 2 or res.backoffs or res.n_traces != 1 or \
+            res.lane_steps != sum(TRAIN_FAMILY_BUDGETS):
+        raise AssertionError(f"[{tag}] sweep: pack {res.pack_factor}, "
+                             f"backoffs {res.backoffs}, n_traces "
+                             f"{res.n_traces}, lane_steps {res.lane_steps}")
+    if [len(res.losses[t.id]) for t in tasks] != list(
+            TRAIN_FAMILY_BUDGETS) or not all(
+            np.isfinite(v).all() for v in res.losses.values()):
+        raise AssertionError(f"[{tag}] per-task losses: wrong counts or not "
+                             f"finite")
+    if b3 != want or by_body["wgmma"] != b3 or b4_calls:
+        raise AssertionError(f"[{tag}] flash_attention launched {b3} times "
+                             f"({by_body}), want {want} on the wgmma body; "
+                             f"ssd_scan {b4_calls}, want 0")
+    record[f"launches_{tag.replace('-', '_')}"] = b3
+    b4[f"launches_{tag.replace('-', '_')}"] = b4_calls
+
+    # each task run alone (a pool of one lane): step 0 as [train-lm]'s
+    # step-0 bound, the trajectory as its all-step bound
+    alone = {t.id: run_sweep(model, [t], batch_fn=bf,
+                             steps=max(TRAIN_FAMILY_BUDGETS), max_pack=1,
+                             policy=policy).losses[t.id] for t in tasks}
+    first = lambda r: {i: v[:1] for i, v in r.items()}
+    gap0 = _compare_losses("step-0 losses, packed vs each task alone",
+                           first(res.losses), first(alone),
+                           tol=dict(rtol=TRAIN_LM_LOSS_RTOL, atol=0.0),
+                           phase=tag)
+    gap = _compare_losses("per-task losses, packed vs each task alone",
+                          res.losses, alone,
+                          tol=dict(rtol=TRAIN_LM_TRAJ_RTOL, atol=0.0),
+                          phase=tag)
+    check_training_gradient(tag, model, bf)
+
+    # remat's readings at one lane, with and without
+    peaks = {True: lm_peaks(model, 1, bf)}
+    no_remat = build_model(dataclasses.replace(cfg, remat=False),
+                           device="cuda")
+    peaks[False] = lm_peaks(no_remat, 1, bf)
+    log_remat_peaks(f"1-lane, {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens",
+                    peaks, phase=tag)
+    for what in ("held", "gradient"):
+        if not peaks[True][what][1] < peaks[False][what][1]:
+            raise AssertionError(f"[{tag}] remat did not lower the {what} "
+                                 f"bytes")
+    if any(peaks[r]["garbage"] for r in peaks):
+        raise AssertionError(f"[{tag}] a pool step left tensors in a "
+                             f"reference cycle")
+
+    # where the time goes in one pool step at the pack factor
+    k = res.pack_factor
+    pool, batch = lm_pool(model, k, bf)
+    (wall_ms, by_name), = profile_calls(
+        ((f"{cfg.name} x{cfg.num_layers} layers, {k}-lane pool step",
+          lambda: pool.step(batch)),))
+    busy = log_by_kind(by_name)
+    fa_ms, fa_n = map(sum, zip(*[v for name, v in by_name.items()
+                                 if "fa_fwd" in name] or [(0.0, 0)]))
+    hd = cfg.resolved_head_dim
+    fa_bound, fa_by = attention_bound_ms(
+        k * TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_SEQ, cfg.num_heads,
+        cfg.num_kv_heads, hd, True, 0, torch.bfloat16)
+    log(f"[profile] B3 in that step: {fa_ms:.3f} ms in {fa_n} launches, "
+        f"{fa_ms / busy:.1%} of the kernels' time, "
+        f"{fa_ms / max(fa_n, 1):.4f} ms a launch at "
+        f"({k * TRAIN_LM_BATCH}, {TRAIN_LM_SEQ}, {cfg.num_heads}, {hd}) bf16 "
+        f"causal, bound {fa_bound:.4f} ms ({fa_by})")
+    reading = {"layers": cfg.num_layers, "pack": k, "step0_gap": gap0,
+               "all_gap": gap, "pool_step_wall_ms": wall_ms,
+               "device_ms": fa_ms / max(fa_n, 1), "bound_ms": fa_bound,
+               "remat_peaks_1_lane": {
+                   name: [peaks[r][name][0] for r in (True, False)]
+                   for name in ("held", "gradient", "pool step")}}
+    if cfg.moe:
+        experts = pool.params["blocks"]["moe"]
+        casts = lambda: [experts[w][0, 0].to(torch.bfloat16)
+                         for w in ("w_gate", "w_up", "w_down")]
+        # each lane's forward and remat's recompute cast every layer's
+        # experts once each
+        cast_ms = 2 * k * cfg.num_layers * device_ms(casts, iters=3)
+        log(f"[profile] {cfg.name}: f32 expert-weight casts to bf16 "
+            f"{cast_ms:.2f} ms a pool step (forward and recompute, {k} "
+            f"lanes x {cfg.num_layers} layers); share of the step's kernels "
+            f"{cast_ms / busy:.3f}")
+        reading["expert_cast_share"] = cast_ms / busy
+    record[tag.replace("-", "_")] = reading
+    del pool, batch, no_remat
+    return model, bf, k
+
+
+def profile_step(name: str, fn, args: tuple, *, n_params: float,
+                 n_tokens: float, kind: str, shape: str) -> tuple:
+    """[roofline] one step: its host-clock time (median of 3 warm calls),
+    its counts on the card and on ``meta`` tensors of the same shapes
+    (equal FLOPs, bytes and kernel leaves, or fail), its report's ``row()``
+    beside the measured time, and ``IntensityProfile.from_step``. Returns
+    (profile, reading)."""
+    import torch
+    from repro_torch.roofline import analysis, counting
+    from repro_torch.roofline.analysis import IntensityProfile
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = float(np.median(walls[1:]))
+    t0 = time.perf_counter()
+    on_card = counting.count_step(fn, *args)
+    count_s = time.perf_counter() - t0
+    meta = counting.count_step(fn, *(_tree_to(a, "meta") for a in args))
+    log(f"[roofline] {name}: counted on the card {on_card.flops:.6g} FLOPs, "
+        f"{on_card.bytes:.6g} bytes (leaves {on_card.leaf_calls}, by tag "
+        f"{on_card.bytes_by_tag}; {count_s:.2f} s to count), on meta "
+        f"{meta.flops:.6g} FLOPs, {meta.bytes:.6g} bytes")
+    if (on_card.flops, on_card.bytes, on_card.leaf_calls) != (
+            meta.flops, meta.bytes, meta.leaf_calls):
+        ops = sorted(set(on_card.bytes_by_op) | set(meta.bytes_by_op))
+        log(f"[roofline] {name}: bytes by op, card != meta: " + ", ".join(
+            f"{op} {on_card.bytes_by_op.get(op, 0)} != "
+            f"{meta.bytes_by_op.get(op, 0)}" for op in ops
+            if on_card.bytes_by_op.get(op) != meta.bytes_by_op.get(op)))
+        raise AssertionError(f"[roofline] {name}: the card and meta count "
+                             f"other work")
+    top = sorted(on_card.bytes_by_op.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[roofline] {name}: most bytes by op: " + ", ".join(
+        f"{op} {b / on_card.bytes:.1%}" for op, b in top))
+    report = analysis.analyze_step(fn, *args, arch="h100", shape=shape,
+                                   n_params=n_params, n_tokens=n_tokens,
+                                   kind=kind)
+    prof = IntensityProfile.from_step(fn, *args)
+    if IntensityProfile.from_report(report) != prof:
+        raise AssertionError(f"[roofline] {name}: from_step and from_report "
+                             f"disagree")
+    log(f"[roofline] {name}: row {json.dumps(report.row())}")
+    log(f"[roofline] {name}: measured {wall_ms:.3f} ms a step (median of 3, "
+        f"host clock, {min(walls[1:]):.3f}-{max(walls[1:]):.3f}); roofline "
+        f"bound {1e3 * report.t_bound:.3f} ms ({report.bottleneck}), "
+        f"{1e3 * report.t_bound / wall_ms:.3f} of it reached; {prof}")
+    return prof, {"wall_ms": wall_ms, "flops": on_card.flops,
+                  "bytes": on_card.bytes, "bound_ms": 1e3 * report.t_bound,
+                  "memory_bound_frac": prof.memory_bound_frac,
+                  "arithmetic_intensity": prof.arithmetic_intensity,
+                  "count_s": count_s}
+
+
+def roofline(record: dict, moe: tuple) -> None:
+    """[roofline] ``profile_step`` of a 4-lane decode step of full-width,
+    full-depth StableLM-2 (``decode_step`` with ``route_rows``, as
+    ``BatchServer`` steps it) and of one masked pool step of [train-moe]'s
+    lanes; the decode step must be the more memory-bound, and both
+    profiles go through ``TriplesScheduler.submit(intensity_profile=...)``
+    into admission."""
+    import gc
+
+    import torch
+    from repro_torch import configs, optim
+    from repro_torch.core import packing
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import ParallelCtx, build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles, readings = {}, {}
+    cfg = configs.get("stablelm-1.6b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, ROOFLINE_PROMPT))).cuda()
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": toks},
+                                 max_len=2 * ROOFLINE_PROMPT)
+    step = {"tokens": toks[:, -1:],
+            "pos": torch.full((4,), ROOFLINE_PROMPT, device="cuda")}
+
+    def decode(p, b, c):
+        with torch.inference_mode():
+            return model.decode_step(p, b, c, route_rows=True)
+    profiles["decode"], readings["decode"] = profile_step(
+        f"{cfg.name} decode, 4 lanes", decode, (params, step, cache),
+        n_params=cfg.param_count(), n_tokens=4, kind="decode",
+        shape=f"4 lanes at position {ROOFLINE_PROMPT}")
+    del params, cache, step
+
+    # [train-moe]'s model with its attention path named: "kernel" is what
+    # it takes on the card by default, and the meta count must take it too
+    # (with none named, a meta tensor would pick the CPU's "chunked")
+    cfg_moe, bf, k = moe[0].cfg, moe[1], moe[2]
+    moe_model = build_model(cfg_moe, ParallelCtx(attn_impl="kernel"))
+    opt = optim.adamw(weight_decay=0.0)
+    pool, batch = lm_pool(moe_model, k, bf, opt)
+    pool_step = packing.masked_pool_step(make_train_step(moe_model, opt))
+    mask = np.array(pool.active)
+
+    def train(params, opt_state, batch, hparams):
+        return pool_step(params, opt_state, batch, hparams, mask)
+    mcfg = moe_model.cfg
+    profiles["train"], readings["train"] = profile_step(
+        f"{mcfg.name} x{mcfg.num_layers} pool step, {k} lanes", train,
+        (pool.params, pool.opt_state, batch, pool.hparams),
+        n_params=mcfg.param_count(), n_tokens=k * TRAIN_LM_BATCH *
+        TRAIN_LM_SEQ, kind="train",
+        shape=f"{k} lanes x {TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}")
+    del pool, batch
+    if not (profiles["decode"].memory_bound_frac
+            > profiles["train"].memory_bound_frac):
+        raise AssertionError("[roofline] the decode step is not more "
+                             "memory-bound than the training step")
+    recorded = schedule_profiles(profiles,
+                                 float(torch.cuda.mem_get_info()[1]))
+    log(f"[roofline] admission recorded at first dispatch: " + ", ".join(
+        f"kind:{kind} {v}" for kind, v in recorded.items()))
+    if recorded != {kind: p.interference for kind, p in profiles.items()}:
+        raise AssertionError(f"[roofline] admission recorded {recorded}")
+    record["roofline"] = readings
 
 
 # ---------------------------------------------------------------------------
@@ -3577,6 +3968,30 @@ def diff_quality(old: dict, new: dict) -> list:
     return out
 
 
+def schedule_profiles(profiles: dict, hbm: float) -> dict:
+    """Each ``IntensityProfile`` of ``profiles`` (by kind) submitted to a
+    ``TriplesScheduler`` under ``Tenancy`` on one node of one chip of
+    ``hbm`` bytes, as a gang of one no-op task owned by a user of the
+    kind's name, with ``submit(kind=..., intensity_profile=...)``; runs
+    the queue and returns what admission recorded under ``kind:<kind>``
+    at each gang's first dispatch."""
+    from repro_torch.core.scheduler import (ClusterState, Task, Tenancy,
+                                            TriplesScheduler)
+    from repro_torch.core.triples import NodeSpec, Triples
+    node = NodeSpec(chips_per_node=1, hbm_per_chip=hbm)
+    sched = TriplesScheduler(ClusterState(1, node),
+                             tenancy=Tenancy.create(node_spec=node))
+    jobs = [sched.submit(kind, [Task(id=0, fn=lambda ctx: 0.0)],
+                         Triples(1, 1, 1), kind=kind, intensity_profile=prof)
+            for kind, prof in profiles.items()]
+    done = sched.run_queued()
+    if sorted(done) != sorted(j.id for j in jobs) or any(
+            done[j.id].failed for j in jobs):
+        raise AssertionError("a profiled gang did not run")
+    adm = sched.tenancy.admission
+    return {kind: adm.measured_intensity(f"kind:{kind}") for kind in profiles}
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -3622,11 +4037,21 @@ def main() -> int:
     t3 = time.perf_counter()
     train_resnet()
     t4 = time.perf_counter()
-    policy_phases(records[0])
+    moe = train_family("train-moe", "deepseek-moe-16b", records[0],
+                       records[4])
     t5 = time.perf_counter()
-    log(f"[done] {t5 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
+    train_family("train-hybrid", "zamba2-7b", records[0], records[4])
+    t6 = time.perf_counter()
+    roofline(records[0], moe)
+    del moe
+    t7 = time.perf_counter()
+    policy_phases(records[0])
+    t8 = time.perf_counter()
+    log(f"[done] {t8 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
         f"{t2 - t1:.1f} s, training phases {t3 - t2:.1f} s, [train-resnet] "
-        f"{t4 - t3:.1f} s, policy phases {t5 - t4:.1f} s")
+        f"{t4 - t3:.1f} s, [train-moe] {t5 - t4:.1f} s, [train-hybrid] "
+        f"{t6 - t5:.1f} s, [roofline] {t7 - t6:.1f} s, policy phases "
+        f"{t8 - t7:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -572,6 +572,9 @@ class RefillExecutor:
                     self._cancel_twin(lane, lane_task, stats)
                     if self.on_finish is not None:
                         self.on_finish(t, params, opt_state)
+                    # the detached copy must not live on through the next
+                    # refill and step: at a full-width model it is a lane
+                    del params, opt_state
                 elif (self.checkpoint_every
                       and self.on_checkpoint is not None
                       and not is_twin
@@ -638,5 +641,6 @@ def run_waves(pool_factory: Callable[[], LanePool],
                     done[lane] = None   # lane idles until the wave drains
                     if on_finish is not None:
                         on_finish(t, params, opt_state)
+                    del params, opt_state
     stats.n_traces = pool.n_traces
     return stats

@@ -79,7 +79,7 @@ def sdpa_chunked(q, k, v, *, causal: bool, window: int = 0,
     dev = q.device
     qf = (q.float() * (D ** -0.5)).reshape(B, Sq, Hkv, G, D)
     q_pos = q_offset + torch.arange(Sq, device=dev)
-    limit = (torch.tensor([[Sk]], device=dev) if kv_valid_len is None
+    limit = (torch.full((1, 1), Sk, device=dev) if kv_valid_len is None
              else kv_valid_len.reshape(B, 1))
 
     m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)

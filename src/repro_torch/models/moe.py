@@ -80,7 +80,9 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)                # renorm
     # load-balance aux (Switch): E * sum_e f_e * P_e
     E = router_w.shape[1]
-    f = F.one_hot(idx, E).float().sum((0, 1)) / (x.shape[0] * top_k)
+    flat = idx.reshape(-1)           # counted in integers: runs under vmap
+    f = torch.zeros(E, dtype=flat.dtype, device=x.device).scatter_add(
+        0, flat, torch.ones_like(flat)).float() / (x.shape[0] * top_k)
     P = probs.mean(0)
     aux = E * torch.sum(f * P)
     return w, idx, aux
@@ -131,10 +133,14 @@ def _dispatch_compute_combine(x, w, idx, params, m: MoEConfig, e_start: int,
     group = flat // (per_group * k)
     cat = group * (e_local + 1) + le
     order = torch.argsort(cat, stable=True)
-    counts = torch.bincount(cat, minlength=groups * (e_local + 1))
+    # every write below is out of place into a fresh tensor and no count is
+    # a bincount, so the dispatch runs under torch.func.vmap (a lane pool's
+    # vmap(grad)); the counts are integer sums, exact on the card too
+    counts = torch.zeros(groups * (e_local + 1), dtype=flat.dtype,
+                         device=dev).scatter_add(0, cat, torch.ones_like(cat))
     starts = counts.cumsum(0) - counts
-    slot = torch.empty_like(flat)
-    slot[order] = flat - starts[cat[order]]
+    rank = torch.zeros_like(flat).scatter(0, order, flat)  # place in order
+    slot = rank - starts[cat]
     keep = local & (slot < capacity)
     # a slot is below the group's assignment count to its expert, which is
     # at most per_group (a token's k experts are distinct): rows past that
@@ -143,8 +149,8 @@ def _dispatch_compute_combine(x, w, idx, params, m: MoEConfig, e_start: int,
     le_s = torch.where(keep, le, e_local)             # overflow -> trash row
     row = torch.where(keep, group * rows + slot, 0)
 
-    buf = x.new_zeros((e_local + 1, groups * rows, d))
-    buf[le_s, row] = x.repeat_interleave(k, dim=0)    # kept pairs unique
+    buf = x.new_zeros((e_local + 1, groups * rows, d)).index_put(
+        (le_s, row), x.repeat_interleave(k, dim=0))  # kept pairs unique
     buf = buf[:e_local]
     sl = slice(e_start, e_start + e_local)
     g = torch.bmm(buf, params["w_gate"][sl].to(cdt))

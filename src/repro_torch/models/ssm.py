@@ -66,12 +66,16 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int,
 
     # ---- intra-chunk (dual / attention-like form) ----
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)          # (b,nc,Q,Q)
-    # decay[i,j,h] = exp(la_i - la_j) for i >= j else 0. A where, not a
-    # product with the mask: for i < j the exp may be inf, and inf * 0 = NaN
+    # decay[i,j,h] = exp(la_i - la_j) for i >= j else 0. The mask goes in
+    # before the exp (-inf for i < j), not after it: for i < j the exp may
+    # be inf, and the gradient of a where after it is then 0 * inf = NaN
+    # (the reference masks after the exp, and its gradient is NaN once a
+    # chunk's decays pass exp's range: Zamba2's 128-step chunks at
+    # training). The same values either way
     diff = la[:, :, :, None, :] - la[:, :, None, :, :]    # (b,nc,Q,Q,nh)
     iq = torch.arange(chunk, device=x.device)
     tri = (iq[:, None] >= iq[None, :])[None, None, :, :, None]
-    decay = torch.where(tri, torch.exp(diff), torch.zeros((), device=x.device))
+    decay = torch.exp(diff.masked_fill(~tri, float("-inf")))
     y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", CB, decay, xb)
 
     # ---- chunk-boundary states ----

@@ -16,10 +16,12 @@ rule), so it works in a lane pool's ``vmap(grad(...))``;
 ``setup_context``). It applies only where autograd needs the block's
 result, so every no-grad path (serving) runs as before. A cross block's
 encoder memory rides through it as a tensor input, so its gradient reaches
-the encoder; M-RoPE positions ride as an integer input. Remat with grad
-on a moe block or a hybrid stack raises: ``_Recompute`` carries a block's x
-and not its router loss, so the loss's gradient into the router would be
-lost (the moe and hybrid training path, ROADMAP A.12).
+the encoder; M-RoPE positions ride as an integer input. A moe block's
+router loss is the Function's second output, so the loss's gradient reaches
+the router through the recompute as well. The hybrid recomputes per
+superblock (its ``period`` Mamba2 blocks and the shared block under one
+Function, whose recompute rematerializes each Mamba2 block again, as the
+reference's nested ``jax.checkpoint``) and its tail block by block.
 """
 from __future__ import annotations
 
@@ -32,10 +34,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import (lane_slice, tree_leaves,
                                      tree_map, tree_unflatten)
 from repro_torch.models import attention, layers, moe, ssm
-
-_TRAINING_MESSAGE = ("remat with grad on the {} family waits for the moe and "
-                     "hybrid training path (ROADMAP A.12); build the config "
-                     "with remat=False")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,7 +205,10 @@ class _Recompute(torch.autograd.Function):
     saved tensors themselves would be recorded for a second derivative,
     and every block's recompute would stay alive until the whole backward
     ends, which is what remat is there to avoid. So the Function has a
-    first derivative only."""
+    first derivative only.
+
+    ``fn`` returns one tensor or a tuple (a moe block's x and router
+    loss); the backward takes every output's cotangent into one vjp."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -220,19 +221,22 @@ class _Recompute(torch.autograd.Function):
         ctx.save_for_backward(*inputs[2:])
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *grads):
         saved = [t.detach() for t in ctx.saved_tensors]
         ints, tensors = saved[:ctx.n_int], saved[ctx.n_int:]
         _, vjp = torch.func.vjp(lambda *t: ctx.fn(*ints, *t), *tensors)
-        return (None, None, *([None] * ctx.n_int), *vjp(g.detach()))
+        gs = tuple(g.detach() for g in grads)
+        return (None, None, *([None] * ctx.n_int),
+                *vjp(gs if len(gs) > 1 else gs[0]))
 
 
 def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
                  mrope_positions=None, enc_memory=None, **kw):
-    """``block_fwd``'s x under ``_Recompute``: the positions (and M-RoPE
-    positions) ride as integer inputs, x (and the encoder memory) and the
-    block's params as a flat tuple of tensors, window, impl and the rest in
-    the closure."""
+    """``block_fwd`` under ``_Recompute``, returning (x, aux): the
+    positions (and M-RoPE positions) ride as integer inputs, x (and the
+    encoder memory) and the block's params as a flat tuple of tensors,
+    window, impl and the rest in the closure. A moe block's router loss is
+    the Function's second output; the other kinds' aux is 0."""
     ints = (positions,) if mrope_positions is None else (positions,
                                                          mrope_positions)
     mems = () if enc_memory is None else (enc_memory,)
@@ -240,12 +244,15 @@ def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
     def fn(*args):
         n = len(ints)
         x, rest = args[n], args[n + 1:]
-        out, _, _ = block_fwd(
+        out, _, aux = block_fwd(
             tree_unflatten(p, rest[len(mems):]), x, cfg, kind,
             positions=args[0], mrope_positions=args[1] if n == 2 else None,
             enc_memory=rest[0] if mems else None, **kw)
+        return (out, aux) if kind == "moe" else out
+    out = _Recompute.apply(fn, len(ints), *ints, x, *mems, *tree_leaves(p))
+    if kind == "moe":
         return out
-    return _Recompute.apply(fn, len(ints), *ints, x, *mems, *tree_leaves(p))
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
@@ -264,11 +271,8 @@ def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
     takes the scan autograd takes ("chunked", as the reference's model
     always does) in its forward too, where grad mode is off."""
     remat = _remat(cfg, caches, x, params_stack)
-    if remat and kind == "moe":
-        raise NotImplementedError(_TRAINING_MESSAGE.format("moe"))
-    if remat and kind == "ssm" and pctx.attn_impl is None:
-        pctx = dataclasses.replace(pctx,
-                                   attn_impl=ssm.scan_impl(x.device, True))
+    if remat and kind == "ssm":
+        pctx = _ssm_grad_pctx(pctx, x.device)
     kw = dict(positions=positions, window=window, causal=causal, pctx=pctx,
               route_rows=route_rows, mrope_positions=mrope_positions,
               enc_memory=enc_memory)
@@ -276,7 +280,9 @@ def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
     cross = []
     for i in range(_depth(params_stack)):
         if remat:
-            x = _remat_block(lane_slice(params_stack, i), x, cfg, kind, **kw)
+            x, a = _remat_block(lane_slice(params_stack, i), x, cfg, kind,
+                                **kw)
+            aux = aux + a
             continue
         cache_l = None if caches is None else lane_slice(caches, i)
         x, cache_l, a = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
@@ -295,6 +301,15 @@ def _remat(cfg: ModelConfig, caches, x, params) -> bool:
     the result."""
     return (cfg.remat and caches is None
             and ssm.needs_grad(x, *tree_leaves(params)))
+
+
+def _ssm_grad_pctx(pctx: ParallelCtx, device) -> ParallelCtx:
+    """``pctx`` for Mamba2 blocks under remat: with no impl given, the scan
+    autograd takes ("chunked"), so a recompute Function's forward, which
+    runs with grad off, takes it too."""
+    if pctx.attn_impl is not None:
+        return pctx
+    return dataclasses.replace(pctx, attn_impl=ssm.scan_impl(device, True))
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +341,25 @@ def run_hybrid(params: dict, x, cfg: ModelConfig, *, positions,
     """Each superblock runs its ``period`` Mamba2 blocks, then the shared
     block; then the tail. caches = {"ssm": (n_super, period, B, ...),
     "attn": (n_super, B, ...), "tail": (n_tail, B, ...)} or None, updated
-    in place. Returns (x, caches, aux)."""
-    if _remat(cfg, caches, x, params):
-        raise NotImplementedError(_TRAINING_MESSAGE.format("hybrid"))
+    in place. Returns (x, caches, aux).
+
+    With ``cfg.remat`` and autograd needing the result, each superblock
+    runs under ``_Recompute`` (the shared block's params an input of every
+    one, so their gradient sums over the superblocks) and the tail block by
+    block (``run_stack``). Inside, the Mamba2 blocks take the chunked scan
+    in both passes (``_ssm_grad_pctx``); the shared attention keeps
+    ``pctx``'s path (B3 on ``cuda``). No block of the hybrid has a router,
+    so its aux is 0 and the Function has one output."""
     n_super, period, n_tail = hybrid_layout(cfg)
     kw = dict(positions=positions, window=window, pctx=pctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _remat(cfg, caches, x, params):
+        for s in range(n_super):
+            x = _remat_superblock(lane_slice(params["blocks"], s),
+                                  params["shared"], x, cfg, **kw)
+        if n_tail:
+            x, _, aux = run_stack(params["tail"], x, cfg, "ssm", **kw)
+        return x, None, aux
     for s in range(n_super):
         ssm_c = None if caches is None else lane_slice(caches["ssm"], s)
         x, _, a = run_stack(lane_slice(params["blocks"], s), x, cfg, "ssm",
@@ -346,3 +374,22 @@ def run_hybrid(params: dict, x, cfg: ModelConfig, *, positions,
                             else caches["tail"], **kw)
         aux = aux + a
     return x, caches, aux
+
+
+def _remat_superblock(blocks: dict, shared: dict, x, cfg: ModelConfig, *,
+                      positions, window: int, pctx: ParallelCtx):
+    """One superblock (its ``period`` Mamba2 blocks, then the shared block)
+    under ``_Recompute``: positions as the integer input, x, the blocks'
+    and the shared block's params as tensors."""
+    n = len(tree_leaves(blocks))
+    ssm_pctx = _ssm_grad_pctx(pctx, x.device)
+
+    def fn(pos, h, *leaves):
+        h, _, _ = run_stack(tree_unflatten(blocks, leaves[:n]), h, cfg, "ssm",
+                            positions=pos, window=window, pctx=ssm_pctx)
+        h, _, _ = block_fwd(tree_unflatten(shared, leaves[n:]), h, cfg,
+                            "dense", positions=pos, window=window,
+                            causal=True, pctx=pctx)
+        return h
+    return _Recompute.apply(fn, 1, positions, x, *tree_leaves(blocks),
+                            *tree_leaves(shared))

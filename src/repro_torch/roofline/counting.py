@@ -1,0 +1,316 @@
+"""A step's FLOPs and HBM bytes, counted by running it once: the port's
+counterpart of ``repro.roofline.hlo_costs``, which reads them from a
+compiled XLA program's HLO text.
+
+  * FLOPs come from ``torch.utils.flop_counter.FlopCounterMode``: the
+    products (mm, bmm, convolutions, ...) of every aten op the step runs,
+    forward and backward, under ``torch.func`` transforms too (the modes
+    sit below them and see the batched, physical ops).
+  * Bytes come from a ``TorchDispatchMode`` that adds up each aten op's
+    operand and result sizes, as an eager step moves them through HBM;
+    views, allocations that write nothing and 0-dim scalars move none.
+  * Each kernel entry of ``kernels.ops`` (``flash_attention``, ``ssd``,
+    ``packed_matmul``, ``packed_norm``) is one leaf: its FLOPs and bytes
+    come from its operand shapes by the formulas below (each input read
+    once, each output written once, the work of the unmasked pairs), and
+    the modes do not descend into it. So a step counts the same work
+    whether the kernel or its plain version runs, on ``cuda``, on the CPU
+    or on ``meta`` tensors, which carry shapes only and allocate nothing
+    (during a count the kernels' wrappers hand meta tensors to the plain
+    versions, whose outputs come back in the kernels' contiguous layout).
+    The reference gets the same effect by putting the kernels' analytic
+    I/O in place of the ``sdpa``/``ssd`` scopes.
+
+A leaf's shapes are read through the ``torch.func`` wrappers of its
+operands, so a call under ``vmap`` counts every lane. Work done by a
+leaf's backward (flash attention recomputes through ``sdpa_chunked``)
+is counted op by op, as it runs the same ops on every device.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+from torch.utils.flop_counter import FlopCounterMode
+
+# ---------------------------------------------------------------------------
+# the kernels' work from their shapes
+# ---------------------------------------------------------------------------
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the causal and window masks leave, positions
+    counted from 0 in both (the kernels' contract)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_work(B, Sq, Sk, Hq, Hkv, D, causal, window, itemsize) -> tuple:
+    """(FLOPs, bytes) of flash attention: QKᵀ and PV over the unmasked
+    pairs; q, k, v read once and o written once."""
+    flops = 4 * B * Hq * D * attention_pairs(Sq, Sk, causal, window)
+    nbytes = (2 * B * Sq * Hq + 2 * B * Sk * Hkv) * D * itemsize
+    return flops, nbytes
+
+
+def ssd_work(b, S, nh, hd, N, Q, itemsize, init_state: bool = False
+             ) -> tuple:
+    """(f32 operations, bytes) of the SSD scan on these shapes: C·Bᵀ and
+    the intra-chunk product over the causal half of each chunk (j <= i),
+    the inter-chunk and state products in full; x, B, C read and y written
+    in their dtype, dt read and the state written in f32 (and a given
+    start state read)."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    flops = b * nc * (2 * N * tri + 2 * nh * hd * tri + 4 * Q * N * nh * hd)
+    state = b * nh * hd * N
+    nbytes = ((2 * b * S * nh * hd + 2 * b * S * N) * itemsize
+              + 4 * (b * S * nh + nh + state * (2 if init_state else 1)))
+    return flops, nbytes
+
+
+def matmul_work(J, M, K, N, itemsize) -> tuple:
+    """(FLOPs, bytes) of J products (M, K) @ (K, N)."""
+    return 2 * J * M * K * N, (J * M * K + J * K * N + J * M * N) * itemsize
+
+
+def norm_work(n_rows, d, n_weights, itemsize) -> tuple:
+    """(operations, bytes) of RMSNorm over n_rows rows of d: about 4 f32
+    operations an element; x and the weights read, the output written."""
+    return 4 * n_rows * d, (2 * n_rows * d + n_weights * d) * itemsize
+
+
+def _physical(t: torch.Tensor) -> torch.Tensor:
+    """``t`` under its ``torch.func`` wrappers: its shape then carries every
+    vmapped axis."""
+    from torch._C._functorch import get_unwrapped, is_functorch_wrapped_tensor
+    while is_functorch_wrapped_tensor(t):
+        t = get_unwrapped(t)
+    return t
+
+
+def _lead(t: torch.Tensor, inner: int) -> int:
+    """The product of ``t``'s physical leading axes before its last
+    ``inner`` logical ones: the batch a leaf's kernel would run."""
+    tail = int(np.prod(t.shape[-inner:]))
+    return _physical(t).numel() // max(tail, 1)
+
+
+def _flash_attention_work(q, k, v, causal=True, window=0, *, active=None):
+    Sq, Hq, D = q.shape[-3:]
+    Sk, Hkv = k.shape[-3], k.shape[-2]
+    return attention_work(_lead(q, 3), Sq, Sk, Hq, Hkv, D, causal, window,
+                          q.element_size())
+
+
+def _ssd_work(x, dt, A, B, C, *, chunk=128, active=None, init_state=None):
+    S, nh, hd = x.shape[-3:]
+    return ssd_work(_lead(x, 3), S, nh, hd, B.shape[-1], min(chunk, S),
+                    x.element_size(), init_state is not None)
+
+
+def _packed_matmul_work(x, w, *, active=None):
+    M, K = x.shape[-2:]
+    return matmul_work(_lead(x, 2), M, K, w.shape[-1], x.element_size())
+
+
+def _packed_norm_work(x, w, *, active=None, eps=1e-5):
+    d = x.shape[-1]
+    return norm_work(_lead(x, 1), d, _lead(w, 1), x.element_size())
+
+
+# entry of kernels.ops -> (tag, work from its arguments, and in its kernel
+# module: the plain version, which the "plain" sequence-mixer path calls
+# directly, and the wrapper that picks the kernel or the plain version by
+# device); the tags of the attention and the scan are the reference's
+# scope names
+LEAVES = {"flash_attention": ("sdpa", _flash_attention_work,
+                              ("flash_attention", "flash_attention_plain",
+                               "flash_attention_fwd")),
+          "ssd": ("ssd", _ssd_work, ("ssd_scan", "ssd_scan_plain",
+                                     "ssd_scan")),
+          "packed_matmul": ("packed_matmul", _packed_matmul_work,
+                            ("packed_gemm", "packed_gemm_plain",
+                             "packed_gemm")),
+          "packed_norm": ("packed_norm", _packed_norm_work,
+                          ("fused_rmsnorm", "packed_rmsnorm_plain",
+                           "packed_rmsnorm"))}
+
+# ---------------------------------------------------------------------------
+# the counting modes
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+# ops that allocate without writing, or only read metadata
+_NO_TRAFFIC = {_aten.empty.memory_format, _aten.empty_strided.default,
+               _aten.empty_like.default, _aten.new_empty.default,
+               _aten.new_empty_strided.default, _aten.lift_fresh.default,
+               _aten.is_same_size.default, _aten.sym_size.int,
+               _aten.sym_stride.int, _aten.sym_numel.default,
+               _aten.sym_storage_offset.default,
+               _aten.is_contiguous.default, _aten.is_contiguous.memory_format,
+               _aten.is_non_overlapping_and_dense.default,
+               _aten.is_strides_like_format.default}
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors in ``tree``; a 0-dim tensor (a scalar, which a
+    kernel takes by value, and which a CPU, a card and ``meta`` may hold on
+    different devices) counts none."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size() if tree.dim() else 0
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return 0
+
+
+class _ByteMode(TorchDispatchMode):
+    """Adds up every aten op's operand and result bytes (views and
+    allocations excepted)."""
+
+    def __init__(self):
+        super().__init__()
+        self.by_op: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not func.is_view and func not in _NO_TRAFFIC:
+            name = str(func.overloadpacket)
+            self.by_op[name] = (self.by_op.get(name, 0) + _tensor_bytes(args)
+                                + _tensor_bytes(kwargs) + _tensor_bytes(out))
+        return out
+
+
+@dataclasses.dataclass
+class StepCounts:
+    """What ``count_step`` read: FLOPs and bytes in all, the bytes of the
+    aten ops outside the leaves by op, the kernel leaves' share by tag,
+    their calls by entry, the CUDA allocator's peak above its level before
+    the call (0 off the card) and the arguments' bytes."""
+    flops: int = 0
+    bytes: int = 0
+    bytes_by_op: Dict[str, int] = dataclasses.field(default_factory=dict)
+    flops_by_tag: Dict[str, float] = dataclasses.field(default_factory=dict)
+    bytes_by_tag: Dict[str, float] = dataclasses.field(default_factory=dict)
+    leaf_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
+    peak_bytes: int = 0
+    arg_bytes: int = 0
+
+
+def _contiguous(out):
+    """A leaf's outputs in the layout the kernels write them: contiguous."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_contiguous(o) for o in out)
+    return out.contiguous() if isinstance(out, torch.Tensor) else out
+
+
+@contextlib.contextmanager
+def _kernel_leaves(counts: StepCounts):
+    """Within the block, each entry of ``LEAVES`` in ``kernels.ops``, and
+    its plain version, adds its work to ``counts`` and runs with no
+    dispatch mode active. A leaf inside a leaf (the plain version that an
+    entry runs on the CPU) adds nothing. The kernel module's wrapper hands
+    CPU and ``meta`` tensors to the plain version (outside a count it
+    raises for meta tensors: no kernel takes them), and the plain version
+    returns its outputs contiguous, as the kernels write theirs, so what
+    follows a leaf runs the same ops whichever version ran."""
+    import importlib
+
+    from repro_torch.kernels import ops
+    depth = [0]
+
+    def leaf(fn, name, tag, work):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            if not depth[0]:
+                flops, nbytes = work(*args, **kwargs)
+                counts.flops_by_tag[tag] = (counts.flops_by_tag.get(tag, 0)
+                                            + flops)
+                counts.bytes_by_tag[tag] = (counts.bytes_by_tag.get(tag, 0)
+                                            + nbytes)
+                counts.leaf_calls[name] = counts.leaf_calls.get(name, 0) + 1
+            depth[0] += 1
+            try:
+                with _disable_current_modes():
+                    return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+        return counted
+
+    def in_kernel_layout(plain):
+        @functools.wraps(plain)
+        def run(*args, **kwargs):
+            return _contiguous(plain(*args, **kwargs))
+        return run
+
+    def by_device(fn, plain):
+        @functools.wraps(fn)
+        def pick(x, *args, **kwargs):
+            return (fn if x.device.type == "cuda" else plain)(x, *args,
+                                                              **kwargs)
+        return pick
+
+    patches = []
+    for name, (tag, work, (module, plain, dispatch)) in LEAVES.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        plain_fn = in_kernel_layout(getattr(mod, plain))
+        patches += [(ops, name, leaf(getattr(ops, name), name, tag, work)),
+                    (mod, plain, leaf(plain_fn, plain, tag, work)),
+                    (mod, dispatch, by_device(getattr(mod, dispatch),
+                                              plain_fn))]
+    real = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    try:
+        for owner, attr, fn in patches:
+            setattr(owner, attr, fn)
+        yield
+    finally:
+        for owner, attr, fn in real:
+            setattr(owner, attr, fn)
+
+
+def _first_device(tree) -> torch.device:
+    if isinstance(tree, torch.Tensor):
+        return tree.device
+    items = (tree.values() if isinstance(tree, dict)
+             else tree if isinstance(tree, (list, tuple)) else ())
+    for v in items:
+        dev = _first_device(v)
+        if dev is not None:
+            return dev
+    return None
+
+
+def count_step(fn, *args) -> StepCounts:
+    """Run ``fn(*args)`` once and count its FLOPs and bytes (see the module
+    docstring). The step runs for real: a step that updates state in place
+    does so."""
+    counts = StepCounts(arg_bytes=_tensor_bytes(args))
+    dev = _first_device(args)
+    on_card = dev is not None and dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    flop_mode = FlopCounterMode(display=False)
+    byte_mode = _ByteMode()
+    with _kernel_leaves(counts), byte_mode, flop_mode:
+        fn(*args)
+    if on_card:
+        torch.cuda.synchronize(dev)
+        counts.peak_bytes = torch.cuda.max_memory_allocated(dev) - base
+    counts.flops = (flop_mode.get_total_flops()
+                    + int(sum(counts.flops_by_tag.values())))
+    counts.bytes_by_op = byte_mode.by_op
+    counts.bytes = (sum(byte_mode.by_op.values())
+                    + int(sum(counts.bytes_by_tag.values())))
+    return counts

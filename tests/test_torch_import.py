@@ -38,8 +38,8 @@ def test_import_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out["n"] >= 46   # configs, kernels, models, core, launch, optim,
-                            # data, checkpoint
+    assert out["n"] >= 49   # configs, kernels, models, core, launch, optim,
+                            # data, checkpoint, roofline
     assert out["bad"] == []
 
 
@@ -92,6 +92,14 @@ def test_policy_slice_modules_load_no_jax(module):
     "repro_torch.launch.serve"])
 def test_moe_hybrid_slice_modules_load_no_jax(module):
     """Each module of the moe and hybrid slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.roofline", "repro_torch.roofline.analysis",
+    "repro_torch.roofline.counting"])
+def test_roofline_modules_load_no_jax(module):
+    """Each module of the roofline, imported alone."""
     _alone_loads_no_jax(module)
 
 

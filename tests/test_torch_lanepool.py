@@ -203,6 +203,34 @@ def test_skewed_sweep_3x_capacity_traces_once():
         assert len(losses[i]) == 2 + (5 * i) % 7
 
 
+@pytest.mark.parametrize("waves", [False, True])
+def test_a_finished_lanes_state_is_freed_before_the_next_step(waves):
+    """The copy of a finished lane's state that ``on_finish`` receives is
+    dropped once the callback returns: nothing holds it through the next
+    refill and step (at a full-width model it is a lane's whole state)."""
+    import weakref
+
+    from repro_torch.core.lanepool import run_waves
+    opt, step = _setup()
+    held, alive_at_step = [], []
+
+    def on_finish(t, params, opt_state):
+        held.append(weakref.ref(params["w1"]))
+
+    def counted(*args):
+        alive_at_step.append(sum(r() is not None for r in held))
+        return step(*args)
+    tasks = [_lane_task(opt, i, steps=1 + i % 3) for i in range(5)]
+    if waves:
+        run_waves(lambda: _pool(counted, opt, 2), tasks, on_finish=on_finish)
+    else:
+        RefillExecutor(_pool(counted, opt, 2),
+                       on_finish=on_finish).run(tasks)
+    assert len(held) == 5 and len(alive_at_step) > 1
+    assert alive_at_step == [0] * len(alive_at_step)
+    assert all(r() is None for r in held)
+
+
 def test_refill_beats_waves_on_skewed_budgets():
     opt, step = _setup()
     CAP = 3

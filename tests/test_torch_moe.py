@@ -31,7 +31,8 @@ from repro.models import layers as jlayers
 from repro.models import moe as jmoe
 from repro_torch import configs
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models import moe
+from repro_torch.core import packing
+from repro_torch.models import moe, transformer
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import ParallelCtx
@@ -319,21 +320,32 @@ def test_loss_gradient_matches_reference(ref_model, oracle):
 
 
 def test_remat_with_grad_raises_and_serving_does_not():
-    """Until the moe training path (ROADMAP A.12), remat under grad raises;
-    with remat set, no-grad paths still run."""
-    cfg = dataclasses.replace(configs.get("deepseek-moe-16b").reduced(),
-                              remat=True)
-    model = Model(cfg, device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    """Remat under grad no longer raises (the moe training path, ROADMAP
+    A.12): the gradient with remat on is bit-equal to remat off, also when
+    the loss runs under plain autograd; with remat set, no-grad paths run
+    without entering the recompute Function."""
+    cfg = configs.get("deepseek-moe-16b").reduced()
     b = {k: torch.from_numpy(v) for k, v in _batch().items()}
-    with pytest.raises(NotImplementedError, match="A.12"):
-        torch.func.grad(lambda p: model.loss(p, b)[0])(params)
-    params["embed"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="A.12"):
-        model.loss(params, b)
-    params["embed"].requires_grad_(False)
-    with torch.no_grad():
-        logits, _ = model.prefill(params, {"tokens": b["tokens"]}, 32)
+    grads, losses = {}, {}
+    for remat in (True, False):
+        model = Model(dataclasses.replace(cfg, remat=remat), device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        grads[remat] = torch.func.grad(lambda p: model.loss(p, b)[0])(params)
+        params["embed"].requires_grad_()
+        losses[remat] = model.loss(params, b)[0]
+        losses[remat].backward()
+        params["embed"].requires_grad_(False)
+        losses[remat] = (losses[remat].detach(), params["embed"].grad)
+    assert all(torch.equal(x, y) for x, y in zip(
+        packing.tree_leaves(grads[True]), packing.tree_leaves(grads[False])))
+    assert all(torch.equal(x, y) for x, y in zip(losses[True], losses[False]))
+    assert float(grads[True]["blocks"]["moe"]["router"].abs().sum()) > 0
+    model = Model(dataclasses.replace(cfg, remat=True), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with mock.patch.object(transformer._Recompute, "apply",
+                           lambda *a: pytest.fail("remat without grad")):
+        with torch.no_grad():
+            logits, _ = model.prefill(params, {"tokens": b["tokens"]}, 32)
     assert bool(torch.isfinite(logits).all())
 
 
@@ -367,3 +379,272 @@ def test_decode_routes_rows_alone_only_when_asked(ref_model):
         np.testing.assert_allclose(rows[i:i + 1].numpy(), alone.numpy(),
                                    atol=1e-5, rtol=0)
     assert not torch.allclose(joint, rows, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# under torch.func.vmap and vmap(grad) (C13), and training under remat
+# ---------------------------------------------------------------------------
+
+LANES = 3
+
+
+def _lane_inputs(x):
+    """Three lanes of tokens: x, x reversed and x halved."""
+    return np.stack([x, x[::-1].copy(), x * 0.5])
+
+
+def _lane_params(tree, lib):
+    """Three lanes of params: the tree scaled by 1, 1.1 and 0.9."""
+    if lib == "jax":
+        return jax.tree_util.tree_map(
+            lambda v: jnp.stack([v, v * 1.1, v * 0.9]), tree)
+    return packing.tree_map(lambda v: torch.stack([v, v * 1.1, v * 0.9]),
+                            tree)
+
+
+def _routed(lib, p, x, m, cap, groups):
+    """``moe_routed`` of one lane; the reference routes each group alone by
+    its own vmap over the groups (as its server does)."""
+    if lib == "torch":
+        return moe.moe_routed(p, x, m, capacity=cap, groups=groups)
+    T, d = x.shape
+    y, aux = jax.vmap(lambda xg: jmoe.moe_routed(p, xg, m, capacity=cap))(
+        x.reshape(groups, T // groups, d))
+    # the port's aux is over all T tokens: with groups it equals the
+    # reference's aux of the whole call, computed apart
+    return y.reshape(T, d), jmoe.route(p["router"], x, m.top_k)[2]
+
+
+CAPS = {"dropless": (0.0, None), "capacity_8": (1.25, 8)}
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("cap", sorted(CAPS))
+def test_routed_under_vmap_matches_reference(cap, groups):
+    """``torch.func.vmap`` of ``moe_routed`` over three lanes of tokens,
+    dropless and at capacity 8 (each group's 80 assignments on 8 experts
+    overflow), against ``jax.vmap`` of the reference; the capacity drops
+    change the result."""
+    cf, c = CAPS[cap]
+    m, p, jm, jp, x = _setup(T=40 * groups, cf=cf)
+    xs = _lane_inputs(x)
+    y, aux = torch.func.vmap(lambda xx: _routed("torch", p, xx, m, c,
+                                                groups))(_t(xs))
+    jy, jaux = jax.vmap(lambda xx: _routed("jax", jp, xx, jm, c, groups))(
+        jnp.asarray(xs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **FFN_TOL)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), **ROUTER_TOL)
+    for i in range(LANES):      # each lane as the call alone gives it
+        alone, _ = _routed("torch", p, _t(xs[i]), m, c, groups)
+        np.testing.assert_allclose(y[i].numpy(), alone.numpy(), **FFN_TOL)
+    if c is not None:
+        full, _ = torch.func.vmap(lambda xx: moe.moe_routed(
+            p, xx, m, capacity=40, groups=groups))(_t(xs))
+        assert not torch.allclose(full, y)
+
+
+def _check_grads(mine, want, path=""):
+    """Each leaf within GRAD_REL of its largest entry."""
+    if isinstance(want, dict):
+        assert sorted(mine) == sorted(want)
+        for k in want:
+            _check_grads(mine[k], want[k], f"{path}/{k}")
+        return
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(mine.detach().numpy() - want).max())
+    assert err <= GRAD_REL * scale, (path, err, scale)
+
+
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("cap", sorted(CAPS))
+def test_routed_vmap_grad_matches_reference(cap, groups):
+    """``vmap(grad)`` over three lanes of params and tokens, the loss the
+    output against a fixed cotangent plus the aux, against
+    ``jax.vmap(jax.grad)`` of the reference: the router's gradient comes
+    through the combine weights and the aux."""
+    cf, c = CAPS[cap]
+    m, p, jm, jp, x = _setup(T=40 * groups, cf=cf)
+    xs = _lane_inputs(x)
+    r = np.random.default_rng(9).standard_normal(x.shape).astype(np.float32)
+
+    def loss(lib, pp, xx, rr):
+        y, aux = _routed(lib, pp, xx, m if lib == "torch" else jm, c, groups)
+        return (y * rr).sum() + aux
+    g = torch.func.vmap(torch.func.grad(
+        lambda pp, xx: loss("torch", pp, xx, _t(r))))(_lane_params(p, "torch"),
+                                                       _t(xs))
+    jg = jax.vmap(jax.grad(lambda pp, xx: loss("jax", pp, xx, jnp.asarray(
+        r))))(_lane_params(jp, "jax"), jnp.asarray(xs))
+    _check_grads(g, jg)
+    assert float(g["router"].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("oracle", [True, False])
+@pytest.mark.parametrize("shared,dense", [(2, False), (1, True)])
+def test_moe_ffn_under_vmap_and_vmap_grad_matches_reference(oracle, shared,
+                                                            dense):
+    """``moe_ffn`` (shared experts, Arctic's dense residual) over three
+    lanes under ``vmap`` and ``vmap(grad)``, against the reference under
+    ``jax.vmap``."""
+    m, p, jm, jp, x = _setup(shared=shared, cf=1.25, T=48)
+    jdense = (jlayers.init_mlp(jax.random.PRNGKey(7), 32, 24, "swiglu",
+                               jnp.float32) if dense else None)
+    dp = params_from_numpy(_np(jdense), "cpu") if dense else None
+    xs = _lane_inputs(x).reshape(LANES, 2, 24, 32)
+    y, aux = torch.func.vmap(lambda xx: moe.moe_ffn(
+        p, xx, m, dense_params=dp, oracle=oracle))(_t(xs))
+    jy, jaux = jax.vmap(lambda xx: jmoe.moe_ffn(
+        jp, xx, jm, dense_params=jdense, oracle=oracle))(jnp.asarray(xs))
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **FFN_TOL)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(jaux), **ROUTER_TOL)
+
+    def loss(fn, pp, xx):
+        y, aux = fn(pp, xx)
+        return (y ** 2).mean() + aux
+    tfn = lambda pp, xx: moe.moe_ffn(pp["moe"], xx, m,
+                                     dense_params=pp.get("dense"),
+                                     oracle=oracle)
+    jfn = lambda pp, xx: jmoe.moe_ffn(pp["moe"], xx, jm,
+                                      dense_params=pp.get("dense"),
+                                      oracle=oracle)
+    tp = {"moe": p, **({"dense": dp} if dense else {})}
+    jtp = {"moe": jp, **({"dense": jdense} if dense else {})}
+    g = torch.func.vmap(torch.func.grad(lambda pp, xx: loss(tfn, pp, xx)))(
+        _lane_params(tp, "torch"), _t(xs))
+    jg = jax.vmap(jax.grad(lambda pp, xx: loss(jfn, pp, xx)))(
+        _lane_params(jtp, "jax"), jnp.asarray(xs))
+    _check_grads(g, jg)
+
+
+def _remat_cfg(pkg, arch, remat=True):
+    return dataclasses.replace(pkg.get(arch).reduced(), remat=remat)
+
+
+@pytest.mark.parametrize("oracle", [True, False])
+def test_loss_gradient_with_remat_matches_reference(ref_model, oracle):
+    """``torch.func.grad`` of the loss with remat on (each block under the
+    recompute Function, its router loss the second output) against
+    ``jax.grad`` of the reference with remat on (``jax.checkpoint``)."""
+    arch, _, jp, tp = ref_model
+    jm = jbuild(_remat_cfg(jconfigs, arch), JCtx(moe_oracle=oracle))
+    model = Model(_remat_cfg(configs, arch), ParallelCtx(moe_oracle=oracle),
+                  device="cpu")
+    b = _batch()
+    g = torch.func.grad(lambda p: model.loss(
+        p, {k: torch.from_numpy(v) for k, v in b.items()})[0])(tp)
+    jg = _np(jax.grad(lambda p: jm.loss(
+        p, {k: jnp.asarray(v, jnp.int32) for k, v in b.items()})[0])(jp))
+    _check_grads(g, jg)
+    assert float(g["blocks"]["moe"]["router"].abs().sum()) > 0
+
+
+def _lm_lanes(model, n=3, seq=20):
+    params = packing.stack_trees([model.init(torch.Generator().manual_seed(s))
+                                  for s in range(n)])
+    batch = packing.stack_trees([{k: torch.from_numpy(v) for k, v in
+                                  _batch(seed=s, S=seq).items()}
+                                 for s in range(n)])
+    return params, batch
+
+
+@pytest.mark.parametrize("oracle", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_is_bit_equal_under_vmap_grad(arch, oracle, monkeypatch):
+    """Three lanes' gradients, losses and aux under ``vmap(grad)`` are
+    bit-equal with remat on and off; the remat run goes through the
+    recompute Function once a layer, and its aux is nonzero."""
+    calls = []
+    real = transformer._Recompute.apply
+    monkeypatch.setattr(transformer._Recompute, "apply",
+                        lambda *a: calls.append(1) or real(*a))
+    out = {}
+    for remat in (False, True):
+        model = Model(_remat_cfg(configs, arch, remat),
+                      ParallelCtx(moe_oracle=oracle), device="cpu")
+        params, batch = _lm_lanes(model)
+        out[remat] = torch.func.vmap(torch.func.grad_and_value(
+            model.loss, has_aux=True))(params, batch)
+        assert len(calls) == (model.cfg.num_layers if remat else 0)
+    (g0, (l0, m0)), (g1, (l1, m1)) = out[False], out[True]
+    assert torch.equal(l0, l1) and torch.equal(m0["aux"], m1["aux"])
+    assert bool((m1["aux"] > 1.0).all())
+    assert all(torch.equal(a, b) for a, b in zip(packing.tree_leaves(g0),
+                                                  packing.tree_leaves(g1)))
+    assert bool((g1["blocks"]["moe"]["router"].abs().sum((1, 2, 3)) > 0).all())
+
+
+def test_pool_step_with_kernel_impl_reaches_the_plain_kernel():
+    """A masked ``LanePool`` step of the reduced deepseek-moe-16b (remat on,
+    routed, AdamW) with impl="kernel": each layer's attention goes through
+    ``ops.flash_attention`` (its plain version on the CPU) twice a pool
+    step, the forward and remat's recompute, and the pool's params after
+    the step agree with the same step through the reference's chunked
+    attention within the f32 bound."""
+    from repro_torch import optim
+    from repro_torch.core.lanepool import LanePool
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import make_train_step
+    cfg = _remat_cfg(configs, "deepseek-moe-16b")
+    got = {}
+    for impl in ("kernel", "chunked"):
+        model = Model(cfg, ParallelCtx(attn_impl=impl), device="cpu")
+        opt = optim.adamw()
+        tmpl = model.init(torch.Generator().manual_seed(0))
+        pool = LanePool(3, make_train_step(model, opt), template_params=tmpl,
+                        template_opt=opt.init(tmpl),
+                        template_hparams=torch.tensor(0.0))
+        for lane in (0, 2):                       # lane 1 stays free
+            p = model.init(torch.Generator().manual_seed(lane))
+            pool.attach(lane, lane, p, opt.init(p), torch.tensor(1e-3))
+        _, batch = _lm_lanes(model)
+        calls = []
+        with mock.patch.object(fa, "flash_attention_plain",
+                               lambda *a, real=fa.flash_attention_plain, **k:
+                               calls.append(1) or real(*a, **k)):
+            metrics = pool.step(batch)
+        got[impl] = (pool.params, metrics["loss"], len(calls))
+    assert got["kernel"][2] == 2 * cfg.num_layers and got["chunked"][2] == 0
+    np.testing.assert_allclose(got["kernel"][1].numpy(),
+                               got["chunked"][1].numpy(), rtol=2e-5,
+                               atol=2e-5)
+    for a, b in zip(packing.tree_leaves(got["kernel"][0]),
+                    packing.tree_leaves(got["chunked"][0])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
+                                   atol=2e-5)
+
+
+SWEEP_BUDGETS = (2, 3, 1)
+
+
+def sweep_vs_alone(cfg, pctx=None, seq=16):
+    """A 2-lane ``run_sweep`` of three tasks (budgets 2, 3 and 1, so a lane
+    refills) and each task swept alone on one lane: (packed losses, alone
+    losses, result)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sweep import SweepTask, run_sweep
+    model = Model(cfg, pctx, device="cpu")
+    bf = lambda seed, step: SyntheticLM(cfg.vocab_size, seq, 2,
+                                        seed=seed).batch(step)
+    tasks = [SweepTask(id=i, lr=lr, seed=i, steps=b) for i, (lr, b) in
+             enumerate(zip((1e-3, 3e-3, 2e-3), SWEEP_BUDGETS))]
+    res = run_sweep(model, tasks, batch_fn=bf, steps=3, max_pack=2)
+    alone = {t.id: run_sweep(model, [t], batch_fn=bf, steps=3,
+                             max_pack=1).losses[t.id] for t in tasks}
+    return res.losses, alone, res
+
+
+@pytest.mark.parametrize("oracle", [True, False])
+def test_two_lane_sweep_matches_each_task_alone(oracle):
+    """``run_sweep`` on the reduced deepseek-moe-16b with remat on: two
+    lanes, one refill, every task's losses against the task run alone
+    (f32; lanes under one vmap against one lane, sums in other orders:
+    the f32 parity bound)."""
+    packed, alone, res = sweep_vs_alone(_remat_cfg(configs,
+                                                   "deepseek-moe-16b"),
+                                        ParallelCtx(moe_oracle=oracle))
+    assert res.pack_factor == 2 and res.refills == 3
+    assert res.lane_steps == sum(SWEEP_BUDGETS)
+    for i, want in alone.items():
+        assert len(packed[i]) == SWEEP_BUDGETS[i]
+        np.testing.assert_allclose(packed[i], want, rtol=2e-5, atol=2e-5)

@@ -58,7 +58,10 @@ PREEMPTION_TESTS = [
 ]
 # helper modules whose functions are rebuilt over the port as well
 HELPER_MODULES = ("prop", "tests.prop")
-REBOUND_MODULES = (*WHOLE_FILES, "test_preemption", *HELPER_MODULES)
+# (tests/test_torch_roofline.py rebinds test_roofline_signal.py's cases
+# through this module's ``_rebound_module``)
+REBOUND_MODULES = (*WHOLE_FILES, "test_preemption", "test_roofline_signal",
+                   *HELPER_MODULES)
 
 
 def _is_ref(name: str) -> bool:

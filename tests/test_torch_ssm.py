@@ -94,6 +94,51 @@ def test_ssd_chunked_matches_reference(b, S, nh, hd, N, chunk, with_state):
     _close(st, st_j)
 
 
+def _decay_inputs(A, dt):
+    """A scan of two chunks of 128 steps whose per-step decays are
+    ``dt · A``: at dt 0.5 and A -4 a chunk's decays reach exp(254), past
+    f32's range, in the entries the causal mask removes."""
+    rng = np.random.default_rng(3)
+    b, S, nh, hd, N = 1, 256, 2, 4, 8
+    x = rng.standard_normal((b, S, nh, hd)).astype(np.float32)
+    B = rng.standard_normal((b, S, N)).astype(np.float32)
+    C = rng.standard_normal((b, S, N)).astype(np.float32)
+    return [x, np.full((b, S, nh), dt, np.float32),
+            np.asarray(A, np.float32), B, C]
+
+
+@pytest.mark.parametrize("A,dt,ref_finite", [((-4.0, -0.5), 0.5, False),
+                                             ((-0.5, -0.1), 0.1, True)])
+def test_ssd_chunked_gradient_is_finite(A, dt, ref_finite):
+    """The gradient of the chunked scan stays finite where a chunk's decays
+    pass exp's range (Zamba2's 128-step chunks at training). The
+    reference's is NaN there (it masks after the exp: C14, fixed in the
+    port only); where the reference's is finite the two agree, as do the
+    outputs in both cases."""
+    arrays = _decay_inputs(A, dt)
+    r = np.random.default_rng(4).standard_normal(arrays[0].shape).astype(
+        np.float32)
+
+    def loss(lib, x, dt, A, B, C):
+        y, st = (ssm if lib == "torch" else jssm).ssd_chunked(
+            x, dt, A, B, C, chunk=128)
+        return (y * (torch.from_numpy(r) if lib == "torch"
+                     else jnp.asarray(r))).sum() + (st ** 2).sum()
+    g = torch.func.grad(lambda *a: loss("torch", *a), argnums=tuple(
+        range(5)))(*_t(arrays))
+    jg = jax.grad(lambda *a: loss("jax", *a), argnums=tuple(range(5)))(
+        *_j(arrays))
+    assert all(bool(torch.isfinite(t).all()) for t in g)
+    assert all(np.isfinite(np.asarray(t)).all() for t in jg) == ref_finite
+    y, st = ssm.ssd_chunked(*_t(arrays), chunk=128)
+    y_j, st_j = jssm.ssd_chunked(*_j(arrays), chunk=128)
+    _close(y, y_j)
+    _close(st, st_j)
+    if ref_finite:
+        for mine, want in zip(g, jg):
+            _close(mine, want)
+
+
 def test_ssd_chunked_init_state_continues_a_split_sequence():
     """Scanning the second half from the first half's state gives the
     second half of the whole scan."""
