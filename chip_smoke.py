@@ -137,7 +137,21 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    middle record boundary and recovered: equal results, no decision-log
    difference, at most one task run twice; [replay] the port's
    ``compare_modes`` over the six committed traces against
-   ``BENCH_HISTORY.json``'s last entry, every field exactly.
+   ``BENCH_HISTORY.json``'s last entry, every field exactly;
+9. the distributed layer: the [dryrun] cells (four full-size production
+   cells, each a ``python -m repro_torch.launch.dryrun`` child counting
+   on ``meta`` in a ``"fake"`` process group) and the meta twins start
+   as child processes; on a NCCL group of one rank and a (1, 1) mesh,
+   [dist-ep] the longest [serve-moe] prefill under expert parallelism
+   (f32 and bf16 combine): logits bit-equal to ``ParallelCtx()``'s, B3
+   14 launches each held to its plain version, the card's collectives
+   equal to the same step's on ``meta``; [dist-train] 3 AdamW steps of
+   full-width StableLM-2 (4 layers) with FSDP placements, bit-equal to
+   the same steps unsharded (or the first differing op named and held
+   within 1e-5), 24 B3 launches, ``compressed_psum`` and
+   ``allgather_matmul`` at world size 1, the peak beside the meta
+   count's; then [dryrun] reads the children: every cell OK, argument
+   bytes two ways equal, pod-axis bytes on the multi-pod cell.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -3992,6 +4006,469 @@ def schedule_profiles(profiles: dict, hbm: float) -> dict:
     return {kind: adm.measured_intensity(f"kind:{kind}") for kind in profiles}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the distributed layer ([dist-ep], [dist-train], [dryrun])
+# ---------------------------------------------------------------------------
+
+# [dist-train]: full-width StableLM-2 1.6B at [train-lm]'s depth and one
+# lane's batch, DIST_TRAIN_STEPS AdamW steps sharded (fsdp) on a (1, 1)
+# mesh against the same steps unsharded; if they are not bit-equal, the
+# first differing op is named and they are held within DIST_TRAIN_RTOL
+DIST_TRAIN_STEPS = 3
+DIST_TRAIN_RTOL = 1e-5
+DIST_TRAIN_LR = 1e-4
+# [dryrun]: full-size production cells, each counted on meta in a fake
+# process group by its own ``python -m repro_torch.launch.dryrun`` child
+DRYRUN_CELLS = (("llama3-405b", "train_4k", "single"),
+                ("arctic-480b", "train_4k", "multi"),
+                ("deepseek-moe-16b", "decode_32k", "single"),
+                ("zamba2-7b", "long_500k", "single"))
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
+
+
+def dist_ep_shape(prompt_len: int):
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec("dist_ep", prompt_len, 1, "prefill")
+
+
+def dist_train_shape():
+    from repro_torch.configs.base import ShapeSpec
+    return ShapeSpec("dist_train", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
+
+
+def meta_twins(ep_prompt_len: int) -> None:
+    """Run in a child process (a ``"fake"`` group cannot share a process
+    with the NCCL one): [dist-ep]'s EP prefill and [dist-train]'s sharded
+    step counted on meta tensors in a fake group of one rank on a (1, 1)
+    mesh. Prints one JSON line: each one's collectives (kind, result
+    bytes, group size), argument bytes and the peak of its temporaries."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        for name, arch, shape, over in (
+                ("ep", "deepseek-moe-16b", dist_ep_shape(ep_prompt_len),
+                 dict(num_layers=MOE_LAYERS)),
+                ("train", "stablelm-1.6b", dist_train_shape(),
+                 dict(num_layers=TRAIN_LM_LAYERS))):
+            c = dryrun.count_cell(arch, shape, mesh, overrides=over)[0]
+            out[name] = {"collectives": [[op.kind, op.result_bytes,
+                                          op.group_size]
+                                         for op in c.collectives],
+                         "arg_bytes": c.arg_bytes,
+                         "temp_bytes": c.live_peak_bytes,
+                         "flops": c.flops}
+    print(json.dumps(out))
+
+
+def start_children(ep_prompt_len: int) -> list:
+    """The [dryrun] cells and the meta twins, each a child process started
+    now; ``finish_children`` collects them."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    root = str(Path(__file__).resolve().parent)
+    kids = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out",
+               str(DRYRUN_OUT)]
+        kids.append((f"{arch} × {shape} × {mesh}", subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), time.perf_counter()))
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            f"chip_smoke.meta_twins({ep_prompt_len})")
+    kids.append(("meta twins", subprocess.Popen(
+        [sys.executable, "-c", code], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        time.perf_counter()))
+    return kids
+
+
+def finish_children(kids: list, timeout: float = 900) -> dict:
+    """Wait for every child; returns {label: (exit code, output, s)}. A
+    child still running at ``timeout`` is killed (and fails its phase)."""
+    out = {}
+    for label, p, t0 in kids:
+        try:
+            text, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        out[label] = (p.returncode, text, time.perf_counter() - t0)
+    return out
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """A NCCL default group of one rank on this card (NCCL takes no two
+    ranks on one device); a failure to make it fails the phase."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _collectives(counts) -> list:
+    return [[op.kind, op.result_bytes, op.group_size]
+            for op in counts.collectives]
+
+
+def dist_ep(record: dict, mesh, twins: dict) -> None:
+    """[dist-ep]: full-width DeepSeekMoE-16B at [serve-moe]'s depth, the
+    prefill of [serve-moe]'s longest request (request 0 of the compared
+    path) under expert parallelism on the (1, 1) mesh, with an f32 and a
+    bf16 combine, against the same prefill under ``ParallelCtx()``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import counting
+    cfg = dataclasses.replace(configs.get("deepseek-moe-16b"),
+                              num_layers=MOE_LAYERS)
+    reqs = make_requests(0, 8, (512, 1024), (8, 32), cfg.vocab_size)
+    r0 = max(reqs, key=lambda r: len(r.prompt))
+    S = len(r0.prompt)
+    plain = Model(cfg, device="cuda")
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    tok = torch.as_tensor(r0.prompt, device="cuda")[None]
+    with torch.no_grad():
+        want, _ = plain.prefill(params, {"tokens": tok}, max_len=S)
+        base_ms = cuda_time_ms(lambda: plain.prefill(
+            params, {"tokens": tok}, max_len=S), iters=3, warmup=1)
+    out = {}
+    for name, opt in (("ep", {}), ("ep_bf16", {"ep_bf16": True})):
+        step, specs, _, _, model = dryrun.lower_cell(
+            "deepseek-moe-16b", dist_ep_shape(S), mesh,
+            overrides=dict(num_layers=MOE_LAYERS), opt=opt, device="cuda")
+        dparams = sharding.distribute_local(
+            params, mesh, sharding.param_shardings(mesh, params))
+        batch = {"tokens": tok}
+        dbatch = sharding.distribute_local(
+            batch, mesh, sharding.batch_shardings(mesh, batch, 1))
+        with torch.no_grad():
+            with served_kernel_checks(f"dist-ep {name}") as seen:
+                reset_launches()
+                logits, _ = step(dparams, dbatch)
+                torch.cuda.synchronize()
+                n = b3_launches(f"dist-ep {name}", cfg.num_layers)
+            ms = cuda_time_ms(lambda: step(dparams, dbatch), iters=3,
+                              warmup=1)
+            got = logits.full_tensor()
+            equal = torch.equal(got, want)
+            log(f"[dist-ep] {name}: logits bit-equal to ParallelCtx()'s "
+                f"{equal} (max abs diff "
+                f"{(got - want).abs().max().item():.3g}); B3 {n} launches, "
+                f"each within its limit of the plain version on its served "
+                f"inputs (max abs err {max(seen['b3']):.3g}, limits "
+                f"{min(seen['b3_limit']):.3g}-{max(seen['b3_limit']):.3g}); "
+                f"prefill {ms:.2f} ms (ParallelCtx() {base_ms:.2f} ms), "
+                f"{S} tokens")
+            if not equal:
+                raise AssertionError(f"[dist-ep] {name}: the EP logits are "
+                                     f"not bit-equal to ParallelCtx()'s")
+            out[name] = {"launches": n, "ms": ms}
+            if name == "ep":
+                card = _collectives(counting.count_step(step, dparams,
+                                                        dbatch))
+                meta = twins["ep"]["collectives"]
+                log(f"[dist-ep] collectives recorded on the card "
+                    f"{len(card)}, on meta (fake group of 1) {len(meta)}: "
+                    f"{card[:6]}{' ...' if len(card) > 6 else ''}")
+                if card != meta:
+                    raise AssertionError(f"[dist-ep] card collectives "
+                                         f"{card} != meta {meta}")
+        del dparams, logits, got
+    record["launches_dist_ep"] = out["ep"]["launches"]
+    record["dist_ep"] = {"prompt": S, "prefill_ms": out["ep"]["ms"],
+                         "prefill_ms_bf16": out["ep_bf16"]["ms"],
+                         "prefill_ms_plain": base_ms}
+    del params, plain
+
+
+def op_trace(fn, *args) -> list:
+    """(op, shape, f64 sum) of every floating aten op that ``fn`` runs on
+    plain (local) tensors, views and collectives aside: the sequence two
+    runs are compared by when their results differ."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = []
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t.__name__ == "DTensor" for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if (not func.is_view and func.namespace == "aten"
+                    and isinstance(out, torch.Tensor)
+                    and out.is_floating_point() and out.numel()
+                    and str(func.overloadpacket) not in (
+                        "aten.clone", "aten.detach", "aten._to_copy",
+                        "aten.copy_", "aten.zeros_like", "aten.empty",
+                        "aten.empty_like", "aten.empty_strided",
+                        "aten.new_empty", "aten.new_empty_strided")):
+                seen.append((str(func.overloadpacket), tuple(out.shape),
+                             out.double().sum().item()))
+            return out
+    with Trace():
+        fn(*args)
+    return seen
+
+
+def first_difference(a: list, b: list):
+    """The first result of ``a`` (the unsharded step's ``op_trace``) whose
+    (shape, sum) no result of ``b`` (the sharded step's) has, each of b's
+    matched once (the sharded path runs extra ops, such as the loss's
+    masked pick, in another order, and may call one op by another name):
+    (index in a, op, shape, sum), or None when every result is found."""
+    left: dict = {}
+    for _, shape, total in b:
+        left[(shape, total)] = left.get((shape, total), 0) + 1
+    for i, (op, shape, total) in enumerate(a):
+        if left.get((shape, total), 0) == 0:
+            return i, op, shape, total
+        left[(shape, total)] -= 1
+    return None
+
+
+def dist_train(record: dict, mesh, twins: dict) -> None:
+    """[dist-train]: full-width StableLM-2 1.6B at [train-lm]'s depth,
+    ``DIST_TRAIN_STEPS`` AdamW steps of one lane's batch with params,
+    moments and batch placed by ``param_shardings``/``batch_shardings``
+    (fsdp) on the (1, 1) mesh, B3 through ``local_map``, against the same
+    steps unsharded; ``compressed_psum`` of the real gradients and
+    ``allgather_matmul`` on the one-rank group."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, optim
+    from repro_torch.core import packing
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.collectives import allgather_matmul
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                      dequantize_int8,
+                                                      quantize_int8)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import make_train_step, mesh_grads
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.get("stablelm-1.6b"),
+                              num_layers=TRAIN_LM_LAYERS)
+    plain = Model(cfg, device="cuda")
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = optim.adamw()
+    lr = torch.tensor(DIST_TRAIN_LR, device="cuda")
+    bf = lm_batch_fn(cfg, TRAIN_LM_SEQ, TRAIN_LM_BATCH)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in bf(0, i).items()} for i in range(DIST_TRAIN_STEPS)]
+    # the unsharded steps differentiate as the sharded ones must, by
+    # torch.autograd (torch.func, the lane pool's, differs in the last
+    # bits: it decomposes SiLU's backward into its sigmoid)
+    step_u = make_train_step(plain, opt, autograd=True)
+    step_s, _, _, _, model = dryrun.lower_cell(
+        "stablelm-1.6b", dist_train_shape(), mesh,
+        overrides=dict(num_layers=TRAIN_LM_LAYERS), device="cuda")
+    place = sharding.param_shardings(mesh, params, fsdp=True)
+
+    def shard(tree, pl):
+        return sharding.distribute_local(tree, mesh, pl)
+
+    def run(step, p, o, bs, sharded):
+        losses, walls = [], []
+        for b in bs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, b, lr)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            losses.append(m["loss"].full_tensor() if sharded else m["loss"])
+        return p, o, losses, walls
+
+    copy = lambda t: packing.tree_map(lambda x: x.clone(), t)  # noqa: E731
+    pu, ou, lu, wu = run(step_u, copy(params), opt.init(params), batches,
+                         False)
+    dparams = shard(copy(params), place)
+    dopt = {"mu": shard(opt.init(params)["mu"], place),
+            "nu": shard(opt.init(params)["nu"], place),
+            "count": torch.zeros((), dtype=torch.int32, device="cuda")}
+    dbatches = [shard(b, sharding.batch_shardings(mesh, b, TRAIN_LM_BATCH))
+                for b in batches]
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    ps, os_, ls, ws = run(step_s, dparams, dopt, dbatches, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n = b3_launches("dist-train", DIST_TRAIN_STEPS * TRAIN_LM_LAYERS * 2)
+    record["launches_dist_train"] = n
+    leaves_u, leaves_s = packing.tree_leaves(pu), [
+        t.full_tensor() for t in packing.tree_leaves(ps)]
+    loss_equal = all(torch.equal(a, b) for a, b in zip(ls, lu))
+    leaf_equal = all(torch.equal(a, b) for a, b in zip(leaves_s, leaves_u))
+    rel = max(max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                    1e-30)
+                   for a, b in zip(leaves_s, leaves_u)),
+              max(abs(a.item() - b.item()) / abs(b.item())
+                  for a, b in zip(ls, lu)))
+    log(f"[dist-train] {cfg.name} {cfg.num_layers} layers, batch "
+        f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ}, {DIST_TRAIN_STEPS} AdamW steps: "
+        f"losses sharded {[round(x.item(), 6) for x in ls]}, unsharded "
+        f"{[round(x.item(), 6) for x in lu]}; losses bit-equal {loss_equal}, "
+        f"every updated leaf bit-equal {leaf_equal} (largest relative "
+        f"difference {rel:.3g})")
+    if not (loss_equal and leaf_equal):
+        p0 = params
+        trace_u = op_trace(lambda: mesh_grads(plain.loss, p0, batches[0]))
+        trace_s = op_trace(lambda: mesh_grads(model.loss, shard(
+            copy(p0), place), dbatches[0]))
+        first = first_difference(trace_u, trace_s)
+        log(f"[dist-train] first op of the unsharded step whose result "
+            f"the sharded one does not reproduce (ops of {len(trace_u)} "
+            f"unsharded, {len(trace_s)} sharded): {first}")
+        g_u, _ = mesh_grads(plain.loss, p0, batches[0])
+        g_s, _ = mesh_grads(model.loss, shard(copy(p0), place),
+                            dbatches[0])
+        names = [".".join(map(str, path)) for path, _ in
+                 sharding.flatten_with_path(p0)]
+        diff = [(n, (a.full_tensor() - b).abs().max().item())
+                for n, a, b in zip(names, packing.tree_leaves(g_s),
+                                   packing.tree_leaves(g_u))
+                if not torch.equal(a.full_tensor(), b)]
+        log(f"[dist-train] step 0's gradients not bit-equal: {diff}")
+        if rel > DIST_TRAIN_RTOL:
+            raise AssertionError(f"[dist-train] sharded and unsharded steps "
+                                 f"differ by {rel:.3g} relative > "
+                                 f"{DIST_TRAIN_RTOL}")
+    # compressed_psum of the real gradients on the one-rank group
+    grads, _ = mesh_grads(model.loss, shard(copy(params), place),
+                          dbatches[0])
+    n_ok = 0
+    for g in packing.tree_leaves(grads):
+        g = g.to_local()
+        q, s = quantize_int8(g)
+        for scheme, want in (("fp32", g.float()),
+                             ("bf16", g.bfloat16().float()),
+                             ("int8", dequantize_int8(q, s))):
+            got = compressed_psum(g, dist.group.WORLD, scheme)
+            if not torch.equal(got, want):
+                raise AssertionError(f"[dist-train] compressed_psum "
+                                     f"{scheme} of a gradient {tuple(g.shape)}"
+                                     f" is not its one-rank value")
+        n_ok += 1
+    x = torch.randn(64, cfg.d_model, device="cuda")
+    w = params["blocks"]["mlp"]["w_up"][0]
+    agm = allgather_matmul(x, w, dist.group.WORLD)
+    if not torch.equal(agm, x @ w):
+        raise AssertionError("[dist-train] allgather_matmul != x @ W")
+    pred = twins["train"]["arg_bytes"] + twins["train"]["temp_bytes"]
+    log(f"[dist-train] compressed_psum fp32/bf16/int8 of {n_ok} gradients "
+        f"equal to g, g.bfloat16().float() and dequantize(quantize(g)); "
+        f"allgather_matmul at world size 1 equal to x @ W")
+    log(f"[dist-train] step wall sharded {[round(v, 1) for v in ws]} ms, "
+        f"unsharded {[round(v, 1) for v in wu]} ms (host clock; DTensor's "
+        f"host overhead at one rank); peak above what was held before the "
+        f"steps {peak / 1e9:.3f} GB (max_memory_allocated: each step's new "
+        f"params and moments and its temporaries), dry-run prediction "
+        f"arg + temp {pred / 1e9:.3f} GB (arg "
+        f"{twins['train']['arg_bytes'] / 1e9:.3f} + temp "
+        f"{twins['train']['temp_bytes'] / 1e9:.3f}, counted on meta)")
+    record["dist_train"] = {"wall_ms_sharded": ws, "wall_ms_unsharded": wu,
+                            "peak_gb": peak / 1e9,
+                            "predicted_arg_temp_gb": pred / 1e9,
+                            "bit_equal": loss_equal and leaf_equal,
+                            "max_rel": rel}
+
+
+def gc_collect() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(record: dict, results: dict) -> None:
+    """[dryrun]: every cell's child exited 0 with an OK line; each row's
+    ``arg_gb_dev`` equals the argument bytes summed from its specs; the
+    multi-pod cell carries collective bytes on its pod axis; arg + temp
+    per device printed beside 80 GB (a reading, not a gate)."""
+    rows = {}
+    for (arch, shape, mesh), (label, (rc, text, secs)) in zip(
+            DRYRUN_CELLS, [(k, v) for k, v in results.items()
+                           if k != "meta twins"]):
+        ok_lines = [ln for ln in text.splitlines()
+                    if ln.startswith("[dryrun]")]
+        for ln in ok_lines:
+            log(ln)
+        if rc != 0 or not any(ln.startswith("[dryrun] OK") for ln in
+                              ok_lines):
+            log(text[-3000:])
+            raise AssertionError(f"[dryrun] {label}: exit code {rc}")
+        mname = "2podx16datax16model" if mesh == "multi" \
+            else "16datax16model"
+        row = json.loads((DRYRUN_OUT / f"{arch}__{shape}__{mname}.json")
+                         .read_text())
+        if row["arg_gb_dev"] != row["arg_gb_dev_from_specs"]:
+            raise AssertionError(f"[dryrun] {label}: arg_gb_dev "
+                                 f"{row['arg_gb_dev']} != "
+                                 f"{row['arg_gb_dev_from_specs']} from the "
+                                 f"specs")
+        if mesh == "multi" and not row["coll_by_axis_gb"].get("pod", 0) > 0:
+            raise AssertionError(f"[dryrun] {label}: no collective bytes on "
+                                 f"the pod axis: {row['coll_by_axis_gb']}")
+        total = row["arg_gb_dev"] + row["temp_gb_dev"]
+        log(f"[dryrun] {label}: arg + temp {total:.2f} GB a device beside "
+            f"the card's 80 GB ({'fits' if total <= 80 else 'does not fit'}"
+            f"; a count against HW.h100's data-sheet constants, not a "
+            f"measurement); collectives by axis {row['coll_by_axis_gb']}; "
+            f"{secs:.1f} s")
+        rows[label] = {k: row[k] for k in (
+            "arg_gb_dev", "temp_gb_dev", "gflops_dev", "coll_gb_dev",
+            "coll_by_axis_gb", "bottleneck", "roofline_fraction",
+            "count_s")}
+    record["dryrun"] = rows
+
+
+def dist_phases(record: dict) -> None:
+    """Phase 9: the meta twins and the [dryrun] cells start as children,
+    [dist-ep] and [dist-train] run on a NCCL group of one rank meanwhile,
+    then [dryrun] reads the children."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    cfg = configs.get("deepseek-moe-16b")
+    reqs = make_requests(0, 8, (512, 1024), (8, 32), cfg.vocab_size)
+    ep_len = max(len(r.prompt) for r in reqs)
+    if DRYRUN_OUT.exists():
+        shutil.rmtree(DRYRUN_OUT)
+    kids = start_children(ep_len)
+    try:
+        twins_label, twins_proc, _ = kids[-1]
+        text, _ = twins_proc.communicate(timeout=600)
+        if twins_proc.returncode != 0:
+            log(text[-3000:])
+            raise AssertionError("[dist] the meta twins' child failed")
+        twins = json.loads(text.strip().splitlines()[-1])
+        with nccl_world():
+            mesh = make_mesh((1, 1), ("data", "model"))
+            dist_ep(record, mesh, twins)
+            gc_collect()
+            dist_train(record, mesh, twins)
+            gc_collect()
+        t0 = time.perf_counter()
+        results = finish_children(kids[:-1])
+        log(f"[dryrun] waited {time.perf_counter() - t0:.1f} s for the "
+            f"cells after [dist-ep] and [dist-train]")
+        dryrun_phase(record, results)
+    finally:
+        for _, p, _ in kids:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4047,11 +4524,13 @@ def main() -> int:
     t7 = time.perf_counter()
     policy_phases(records[0])
     t8 = time.perf_counter()
-    log(f"[done] {t8 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
+    dist_phases(records[0])
+    t9 = time.perf_counter()
+    log(f"[done] {t9 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
         f"{t2 - t1:.1f} s, training phases {t3 - t2:.1f} s, [train-resnet] "
         f"{t4 - t3:.1f} s, [train-moe] {t5 - t4:.1f} s, [train-hybrid] "
         f"{t6 - t5:.1f} s, [roofline] {t7 - t6:.1f} s, policy phases "
-        f"{t8 - t7:.1f} s")
+        f"{t8 - t7:.1f} s, distributed phases {t9 - t8:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import tma
+from repro_torch.kernels import _build, tma
 from repro_torch.kernels.ref import mask_lanes
 
 NEG_INF = -1e30
@@ -79,7 +79,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def _bind(body: str):
-    from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     symbol = ("repro_flash_attention_fwd" if body == "simt"
               else "repro_flash_attention_fwd_wgmma")
@@ -130,6 +129,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     the wgmma body for bf16, the simt body for f32.
     ``flash_attention_cuda.launches`` counts the launches and
     ``launches_by_body`` splits them by body."""
+    _build.reject_dtensor("flash_attention_cuda", q, k, v)
     _check(q, k, v, window)
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
@@ -172,6 +172,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         active=None):
     """The plain version for CPU tensors; the kernel for CUDA tensors (it
     launches or raises, never falls back)."""
+    _build.reject_dtensor("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      active=active)

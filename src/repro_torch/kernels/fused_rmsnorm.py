@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mask_lanes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,7 +63,6 @@ def packed_rmsnorm_plain(x, w, *, active=None, eps: float = 1e-5):
 
 
 def _bind(packed: bool):
-    from repro_torch.kernels import _build
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if packed:
         return _build.entry("rmsnorm", "repro_packed_rmsnorm",
@@ -103,6 +103,7 @@ def _launch(fn, x, args):
 def fused_rmsnorm_cuda(x, w, *, eps: float = 1e-5):
     """Launch the row kernel on CUDA tensors: x (..., d), w (d,). Raises on
     anything else. ``fused_rmsnorm_cuda.launches`` counts the launches."""
+    _build.reject_dtensor("fused_rmsnorm_cuda", x, w)
     if x.dim() < 1:
         raise ValueError("fused_rmsnorm_cuda: x must have a last dim")
     d = x.shape[-1]
@@ -123,6 +124,7 @@ def packed_rmsnorm_cuda(x, w, *, active=None, eps: float = 1e-5):
     """Launch the lane-batched kernel on CUDA tensors: x (J, rows, d),
     w (J, d), ``active`` (J,) or None. Raises on anything else.
     ``packed_rmsnorm_cuda.launches`` counts the launches."""
+    _build.reject_dtensor("packed_rmsnorm_cuda", x, w)
     if x.dim() != 3:
         raise ValueError(f"packed_rmsnorm_cuda: x must be (J, rows, d), got "
                          f"{tuple(x.shape)}")
@@ -151,6 +153,7 @@ packed_rmsnorm_cuda.launches = 0
 
 def fused_rmsnorm(x, w, *, eps: float = 1e-5):
     """The plain version for CPU tensors; the kernel for CUDA tensors."""
+    _build.reject_dtensor("fused_rmsnorm", x, w)
     if x.device.type == "cpu":
         return fused_rmsnorm_plain(x, w, eps=eps)
     if x.device.type == "cuda":
@@ -160,6 +163,7 @@ def fused_rmsnorm(x, w, *, eps: float = 1e-5):
 
 def packed_rmsnorm(x, w, *, active=None, eps: float = 1e-5):
     """The plain version for CPU tensors; the kernel for CUDA tensors."""
+    _build.reject_dtensor("packed_rmsnorm", x, w)
     if x.device.type == "cpu":
         return packed_rmsnorm_plain(x, w, active=active, eps=eps)
     if x.device.type == "cuda":

@@ -37,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import tma
+from repro_torch.kernels import _build, tma
 from repro_torch.kernels.ref import mask_lanes, packed_gemm_ref
 
 _BODY = {torch.float32: "simt", torch.bfloat16: "wgmma"}
@@ -88,7 +88,6 @@ def padded_copy(t):
 
 
 def _bind(body: str):
-    from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     if body == "simt":
         return _build.entry("packed_gemm", "repro_packed_gemm",
@@ -132,6 +131,7 @@ def packed_gemm_cuda(x, w, *, active=None):
     ``packed_gemm_cuda.launches`` counts the launches,
     ``launches_by_body`` splits them by body, and ``padded_copies`` counts
     the operands the bf16 body had to copy (``wgmma_layout``)."""
+    _build.reject_dtensor("packed_gemm_cuda", x, w)
     _check(x, w)
     body = gemm_body(x.dtype)
     fn = _bind(body)
@@ -187,6 +187,7 @@ packed_gemm_cuda.padded_copies = 0
 def packed_gemm(x, w, *, active=None):
     """The plain version for CPU tensors; the kernel for CUDA tensors (it
     launches or raises, never falls back)."""
+    _build.reject_dtensor("packed_gemm", x, w)
     if x.device.type == "cpu":
         return packed_gemm_plain(x, w, active=active)
     if x.device.type == "cuda":

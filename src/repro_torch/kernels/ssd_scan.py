@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import mask_lanes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,14 +90,12 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128, active=None,
 
 
 def _bind():
-    from repro_torch.kernels import _build
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     return _build.entry("ssd_scan", "repro_ssd_scan",
                         [p] * 10 + [i] * 6 + [ll] * 14 + [i, p, p])
 
 
 def _bind_plan():
-    from repro_torch.kernels import _build
     i = ctypes.c_int
     return _build.entry("ssd_scan", "repro_ssd_scan_plan",
                         [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)])
@@ -160,6 +159,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 128, active=None,
     ``launches_by_body`` splits them by body and ``scalar_reads`` the calls
     in which the C entry found x, B or C rows it could not copy 16 bytes at
     a time."""
+    _build.reject_dtensor("ssd_scan_cuda", x, dt, A, B, C, init_state)
     pl = _check(x, dt, A, B, C, chunk, init_state)
     fn = _bind()
     b, S, nh, hd = x.shape
@@ -204,6 +204,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, active=None,
              init_state=None):
     """The plain version for CPU tensors; the kernel for CUDA tensors (it
     launches or raises, never falls back)."""
+    _build.reject_dtensor("ssd_scan", x, dt, A, B, C, init_state)
     kw = dict(chunk=chunk, active=active, init_state=init_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, **kw)

@@ -38,6 +38,20 @@ from repro_torch.core import packing
 from repro_torch.models.model import Model
 
 
+def make_prefill(model: Model, max_len: int):
+    """(params, batch) -> (last logits, cache)."""
+    def prefill(params, batch):
+        return model.prefill(params, batch, max_len=max_len)
+    return prefill
+
+
+def make_serve_step(model: Model):
+    """(params, batch{tokens,pos[,mrope_pos]}, cache) -> (logits, cache)."""
+    def serve_step(params, batch, cache):
+        return model.decode_step(params, batch, cache)
+    return serve_step
+
+
 @dataclasses.dataclass
 class Request:
     id: int

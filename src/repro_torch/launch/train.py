@@ -7,6 +7,15 @@ The step is a pure function of tensors, differentiated with
 of one call under ``torch.func.vmap``, as the reference's step runs under
 ``jax.vmap``. Nothing is compiled: the reference's ``jax.jit`` (and its
 buffer donation) has no counterpart here.
+
+Under a mesh (DTensor params, ``distributed.sharding``'s placements) the
+step differentiates with ``torch.autograd`` instead: ``local_map`` regions
+see DTensors only as they are, not through ``torch.func``'s wrappers. A
+gradient comes back with the placements its ops left (partial sums over
+the data axes, where the ranks' batch shards each add theirs); the step
+redistributes each to its parameter's placements before the optimizer,
+the data-parallel reduce-scatter or all-reduce that GSPMD puts in, and
+the update stays elementwise on the shards.
 """
 from __future__ import annotations
 
@@ -19,21 +28,54 @@ from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import packing
 from repro_torch.core.monitor import RunMonitor
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.model import Model
 
 
-def make_train_step(model: Model, opt: optim.Optimizer) -> Callable:
-    """(params, opt_state, batch, lr) -> (params, opt_state, metrics)."""
+def make_train_step(model: Model, opt: optim.Optimizer, *,
+                    autograd: Optional[bool] = None) -> Callable:
+    """(params, opt_state, batch, lr) -> (params, opt_state, metrics).
+    ``autograd``: differentiate with ``torch.autograd`` (as a step on a
+    mesh must) rather than ``torch.func`` (which a lane pool's ``vmap``
+    needs); None picks by the params, ``torch.autograd`` for DTensors.
+    The two differ in the last bits: ``torch.func`` decomposes some
+    backward ops (SiLU's into its sigmoid)."""
 
     def train_step(params, opt_state, batch, lr):
-        grads, (_, metrics) = torch.func.grad_and_value(
-            model.loss, has_aux=True)(params, batch)
+        if autograd or (autograd is None and _on_mesh(params)):
+            grads, metrics = mesh_grads(model.loss, params, batch)
+        else:
+            grads, (_, metrics) = torch.func.grad_and_value(
+                model.loss, has_aux=True)(params, batch)
         metrics = dict(metrics, grad_norm=optim.global_norm(grads))
         updates, opt_state = opt.update(grads, opt_state, params, lr)
         params = optim.apply_updates(params, updates)
         return params, opt_state, metrics
 
     return train_step
+
+
+def _on_mesh(params) -> bool:
+    return is_dtensor(packing.tree_leaves(params)[0])
+
+
+def mesh_grads(loss_fn: Callable, params, batch):
+    """(grads, metrics) of ``loss_fn(params, batch) -> (loss, metrics)``
+    by ``torch.autograd``; a DTensor parameter's gradient redistributed to
+    its placements."""
+    leaves = [p.detach().requires_grad_(True)
+              for p in packing.tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(packing.tree_unflatten(params, leaves),
+                                batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a parameter the loss does not use (a vlm's embedding table, fed
+    # embeddings) gets zeros, as torch.func gives it
+    grads = [torch.zeros_like(p) if g is None else
+             g.redistribute(p.device_mesh, p.placements) if is_dtensor(p)
+             else g for g, p in zip(grads, leaves)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return packing.tree_unflatten(params, grads), metrics
 
 
 def make_eval_step(model: Model) -> Callable:

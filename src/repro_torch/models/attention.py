@@ -21,11 +21,13 @@ would move them all once more. ``attention_block`` returns the same dict.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -128,21 +130,109 @@ def project_kv(params: dict, ctx, num_kv_heads: int, head_dim: int) -> tuple:
     """K/V projections of an encoder memory (no rope). ctx (B, Sk, d)."""
     B, Sk, _ = ctx.shape
     cdt = ctx.dtype
-    k = (ctx @ params["w_k"].to(cdt)).reshape(B, Sk, num_kv_heads, head_dim)
-    v = (ctx @ params["w_v"].to(cdt)).reshape(B, Sk, num_kv_heads, head_dim)
+    k = _heads(ctx @ params["w_k"].to(cdt), num_kv_heads, head_dim)
+    v = _heads(ctx @ params["w_v"].to(cdt), num_kv_heads, head_dim)
     return k, v
+
+
+def _heads(t, H: int, head_dim: int, model=2):
+    """(B, S, H*hd) -> (B, S, H, hd). Under a mesh the heads go over
+    "model" when it divides H (``model`` 2), else "model" is gathered
+    first (``model`` None, or H not divided): a sharded dim of H*hd
+    splits into heads only along whole heads."""
+    B, S, _ = t.shape
+    if is_dtensor(t):
+        from repro_torch.distributed.sharding import (batch_dim,
+                                                      dim_placements,
+                                                      model_dim)
+        mesh = t.device_mesh
+        if model is not None:
+            model = model_dim(mesh, H, 2)
+        t = t.redistribute(mesh, dim_placements(
+            mesh, data=batch_dim(mesh, B), model=model))
+    return t.reshape(B, S, H, head_dim)
+
+
+def mesh_head_dims(mesh, num_heads: int, num_kv_heads: int) -> tuple:
+    """Under a mesh, which of q's and k/v's head dims go over "model" (2)
+    or stay whole (None): all heads where "model" divides the KV heads;
+    else the query heads alone where each rank's query heads read a whole
+    number of KV heads (k and v then whole on every rank, which reads its
+    own); else none."""
+    from repro_torch.distributed.sharding import axis_sizes
+    m = axis_sizes(mesh)["model"]
+    if num_kv_heads % m == 0:
+        return 2, 2
+    hl, group = num_heads // m, num_heads // max(num_kv_heads, 1)
+    if num_heads % m == 0 and (hl % group == 0 or group % hl == 0):
+        return 2, None
+    return None, None
+
+
+def _local_kv_heads(mesh, num_heads: int, num_kv_heads: int) -> tuple:
+    """[lo, hi) of the KV heads this rank's query heads read, when the
+    query heads alone go over "model"."""
+    from repro_torch.distributed.sharding import axis_sizes
+    m = axis_sizes(mesh)["model"]
+    r = mesh.get_local_rank("model")
+    hl, group = num_heads // m, num_heads // num_kv_heads
+    return r * hl // group, ((r + 1) * hl - 1) // group + 1
 
 
 def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
     """Attention of x onto precomputed K/V (cross-attention): every key is
     visible, through ``sdpa_chunked`` on every device, as in the
-    reference (which never takes its kernel here)."""
+    reference (which never takes its kernel here). Under a mesh (DTensor
+    operands) it runs under ``local_map``, batch over the data axes and
+    heads over "model" where they divide."""
     B, S, _ = x.shape
     cdt = x.dtype
-    q = (x @ params["w_q"].to(cdt)).reshape(B, S, num_heads, head_dim)
-    out = sdpa_chunked(q, k, v, causal=False, window=0)
-    out = out.reshape(B, S, num_heads * head_dim)
-    return out @ params["w_o"].to(cdt)
+    q = x @ params["w_q"].to(cdt)
+    if is_dtensor(q):
+        mesh = q.device_mesh
+        qd, kd = mesh_head_dims(mesh, num_heads, k.shape[2])
+        out = _on_mesh(lambda q, k, v, kv_heads: sdpa_chunked(
+            q, *_kv_slice(k, v, kv_heads), causal=False, window=0),
+            _heads(q, num_heads, head_dim, qd), k, v, (), (), qd, kd,
+            num_heads, k.shape[2])
+    else:
+        q = q.reshape(B, S, num_heads, head_dim)
+        out = sdpa_chunked(q, k, v, causal=False, window=0)
+    return _merge_heads(out) @ params["w_o"].to(cdt)
+
+
+def _kv_slice(k, v, kv_heads):
+    if kv_heads is None:
+        return k, v
+    lo, hi = kv_heads
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def _on_mesh(fn, q, k, v, extra, extra_placements, qd, kd, num_heads,
+             num_kv_heads):
+    """``fn(q, k, v, *extra, kv_heads=...)`` on each rank's local tensors
+    under ``local_map``: q, k, v with the batch over the data axes where
+    they divide it and the heads as ``mesh_head_dims`` says; ``extra``
+    DTensors with their ``extra_placements``. When k and v are whole and
+    the query heads are not, ``kv_heads`` is the range this rank reads
+    (else None), and the gradients of k and v are partial sums over
+    "model"."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import batch_dim, dim_placements
+    mesh = q.device_mesh
+    bd = batch_dim(mesh, q.shape[0])
+    qp = dim_placements(mesh, data=bd, model=qd)
+    kp = dim_placements(mesh, data=bd, model=kd)
+    split = qd is not None and kd is None
+    kg = dim_placements(mesh, data=bd, model_partial=True) if split else kp
+    kv_heads = (_local_kv_heads(mesh, num_heads, num_kv_heads) if split
+                else None)
+    return local_map(
+        functools.partial(fn, kv_heads=kv_heads), out_placements=qp,
+        in_placements=(qp, kp, kp, *extra_placements),
+        in_grad_placements=(qp, kg, kg, *extra_placements),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, *extra)
 
 
 def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
@@ -164,6 +254,14 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
     "pos": (B,Smax) int32}, updated in place. ``mrope_positions`` (3, B, S)
     rotates q and k by M-RoPE instead of RoPE; the cache's slots and
     validity still come from ``positions``.
+
+    Under a mesh (x, the params and the cache are DTensors) the
+    projections run as DTensor ops and everything between them (rotation,
+    attention, the cache's writes) under ``local_map``: q, k, v with the
+    batch over the data axes and the heads over "model" as
+    ``mesh_head_dims`` says, the cache as it is sharded, so each rank
+    writes its own shard in place and the kernel gets plain local
+    tensors.
     """
     impl = impl or default_impl(x.device)
     B, S, _ = x.shape
@@ -171,9 +269,62 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
     if kv_ctx is not None:
         k, v = project_kv(params, kv_ctx, num_kv_heads, head_dim)
         return attn_with_kv(params, x, k, v, num_heads, head_dim), None
-    q = (x @ params["w_q"].to(cdt)).reshape(B, S, num_heads, head_dim)
-    k = (x @ params["w_k"].to(cdt)).reshape(B, S, num_kv_heads, head_dim)
-    v = (x @ params["w_v"].to(cdt)).reshape(B, S, num_kv_heads, head_dim)
+    q = x @ params["w_q"].to(cdt)
+    k = x @ params["w_k"].to(cdt)
+    v = x @ params["w_v"].to(cdt)
+    kw = dict(rope_theta=rope_theta, causal=causal, window=window,
+              impl=impl, prob_dtype=prob_dtype)
+    leaves = (None,) * 4 if kv_cache is None else tuple(
+        kv_cache[n] for n in _CACHE_KEYS)
+    if is_dtensor(q):
+        from repro_torch.distributed.sharding import batch_dim, dim_placements
+        mesh = q.device_mesh
+        qd, kd = mesh_head_dims(mesh, num_heads, num_kv_heads)
+        rows = dim_placements(mesh, data=batch_dim(mesh, B))
+        mrope = None if mrope_positions is None else dim_placements(
+            mesh, data=batch_dim(mesh, B, 1))
+        cache = tuple(None if t is None else list(t.placements)
+                      for t in leaves)
+        out = _on_mesh(functools.partial(_attend, **kw),
+                       _heads(q, num_heads, head_dim, qd),
+                       _heads(k, num_kv_heads, head_dim, kd),
+                       _heads(v, num_kv_heads, head_dim, kd),
+                       (positions, mrope_positions, *leaves),
+                       (rows, mrope, *cache), qd, kd, num_heads,
+                       num_kv_heads)
+    else:
+        q = q.reshape(B, S, num_heads, head_dim)
+        k = k.reshape(B, S, num_kv_heads, head_dim)
+        v = v.reshape(B, S, num_kv_heads, head_dim)
+        out = _attend(q, k, v, positions, mrope_positions, *leaves, **kw)
+    return _merge_heads(out) @ params["w_o"].to(cdt), kv_cache
+
+
+def _merge_heads(out):
+    """(B, S, H, hd) -> (B, S, H*hd). Under a mesh the gradient is held to
+    the merged heads' placements before the view's backward splits it into
+    heads again (a dim sharded along part-heads cannot split)."""
+    B, S, H, hd = out.shape
+    out = out.reshape(B, S, H * hd)
+    if is_dtensor(out):
+        from repro_torch.distributed.sharding import constrain
+        out = constrain(out, out.device_mesh, out.placements)
+    return out
+
+
+_CACHE_KEYS = ("k", "v", "len", "pos")
+
+
+def _attend(q, k, v, positions, mrope_positions, ck, cv, clen, cpos, *,
+            rope_theta, causal, window, impl, prob_dtype, kv_heads=None):
+    """``attention_block`` between its projections: rotate q and k, attend
+    (with the cache's leaves ``ck``, ``cv``, ``clen``, ``cpos`` when
+    given, writing them in place). Returns (B, S, Hq, D). ``kv_heads``
+    [lo, hi): q holds the query heads that read only these KV heads of k,
+    v and the cache (which hold all of them)."""
+    B, S = q.shape[:2]
+    kv_cache = None if ck is None else {"k": ck, "v": cv, "len": clen,
+                                        "pos": cpos}
     if mrope_positions is not None:
         q = layers.apply_mrope(q, mrope_positions, rope_theta)
         k = layers.apply_mrope(k, mrope_positions, rope_theta)
@@ -184,7 +335,7 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
     if kv_cache is not None and S == 1:  # decode step (ring write: len % Smax)
         Smax = kv_cache["k"].shape[1]
         slot = (kv_cache["len"] % Smax).long()
-        bidx = torch.arange(B, device=x.device)
+        bidx = torch.arange(B, device=q.device)
         # validity from absolute positions: written, and inside the window
         valid = kv_cache["pos"] >= 0
         valid[bidx, slot] = True
@@ -196,29 +347,29 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
         valid &= kv_cache["pos"] <= cur
         if window:
             valid &= kv_cache["pos"] > cur - window
-        out = sdpa_decode(q, kv_cache["k"], kv_cache["v"], valid)
-    else:  # train / prefill
-        if impl == "kernel":
-            from repro_torch.kernels import ops
-            out = ops.flash_attention(q, k, v, causal=causal, window=window)
-        elif impl == "plain":
-            from repro_torch.kernels.flash_attention import flash_attention_plain
-            out = flash_attention_plain(q, k, v, causal=causal, window=window)
-        elif impl == "chunked":
-            out = sdpa_chunked(q, k, v, causal=causal, window=window,
-                               prob_dtype=prob_dtype)
-        else:
-            raise ValueError(f"unknown attention impl {impl!r}")
-        if kv_cache is not None:  # prefill into cache (keep last Smax if S>Smax)
-            Smax = kv_cache["k"].shape[1]
-            n = min(S, Smax)
-            kv_cache["k"][:, :n] = k[:, S - n:]
-            kv_cache["v"][:, :n] = v[:, S - n:]
-            kv_cache["pos"][:, :n] = positions[:, S - n:].to(torch.int32)
-            kv_cache["len"].fill_(S)
-
-    out = out.reshape(B, S, num_heads * head_dim)
-    return out @ params["w_o"].to(cdt), kv_cache
+        return sdpa_decode(q, *_kv_slice(kv_cache["k"], kv_cache["v"],
+                                         kv_heads), valid)
+    # train / prefill
+    if kv_cache is not None:  # prefill into cache (keep last Smax if S>Smax)
+        Smax = kv_cache["k"].shape[1]
+        n = min(S, Smax)
+        kv_cache["k"][:, :n] = k[:, S - n:]
+        kv_cache["v"][:, :n] = v[:, S - n:]
+        kv_cache["pos"][:, :n] = positions[:, S - n:].to(torch.int32)
+        kv_cache["len"].fill_(S)
+    k, v = _kv_slice(k, v, kv_heads)
+    if impl == "kernel":
+        from repro_torch.kernels import ops
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    elif impl == "plain":
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+        out = flash_attention_plain(q, k, v, causal=causal, window=window)
+    elif impl == "chunked":
+        out = sdpa_chunked(q, k, v, causal=causal, window=window,
+                           prob_dtype=prob_dtype)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return out
 
 
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,

@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
+
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype: torch.dtype) -> torch.Tensor:
@@ -87,7 +89,8 @@ def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
     freqs = rope_freqs(D, theta, x.device)                       # (D/2,)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(mrope_section_sizes(D), device=x.device))   # (D/2,)
+        torch.tensor(mrope_section_sizes(D), device=x.device),
+        output_size=D // 2)                                      # (D/2,)
     pos_per_freq = positions_thw.float()[sec_id]                 # (D/2, B, S)
     ang = pos_per_freq.movedim(0, -1) * freqs                    # (B, S, D/2)
     cos, sin = ang.cos()[:, :, None, :], ang.sin()[:, :, None, :]
@@ -129,7 +132,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     The reference takes the gold logit with a one-hot reduction, which
     keeps a tensor-parallel vocab dim sharded under GSPMD. The port gathers
     it (``torch.take_along_dim``): the same value exactly, without a
-    (B, S, V) f32 one-hot as large as the logits themselves."""
+    (B, S, V) f32 one-hot as large as the logits themselves. Under a mesh
+    (DTensor logits) ``sharded_cross_entropy_loss`` keeps the vocab
+    sharded."""
+    if is_dtensor(logits):
+        return sharded_cross_entropy_loss(logits, labels, ignore_id)
     logits = logits.float()
     mask = (labels != ignore_id).float()
     safe = labels.clamp_min(0).long()
@@ -137,3 +144,72 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / mask.sum().clamp_min(1.0)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim of a vocab sharded over ``group``: the
+    max and the sum of exponentials are all-reduced. Forward and backward
+    are ``torch.logsumexp``'s own formulas, so over one rank the result
+    and its gradient are those of ``torch.logsumexp`` bit for bit."""
+
+    @staticmethod
+    def forward(x, group):
+        import torch.distributed as dist
+        m = torch.amax(x, dim=-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        ms = m.squeeze(-1)
+        ms = ms.masked_fill(ms.abs() == float("inf"), 0)
+        s = torch.exp(x - ms[..., None]).sum(dim=-1)
+        dist.all_reduce(s, group=group)
+        return s.log() + ms
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - out[..., None]), None
+
+
+def sharded_cross_entropy_loss(logits, labels, ignore_id: int = -1):
+    """``cross_entropy_loss`` of DTensor logits (B, S, V) whose vocab is
+    over "model" (the head's placements), under ``local_map``: each rank
+    takes logsumexp's max and sum over its vocab shard and all-reduces
+    them over "model", picks the gold logit where its shard holds the
+    label (0 elsewhere) and sums that over "model", and the NLL and the
+    label count are summed over the data axes. Over one rank every sum is
+    an identity and the value and its gradient are the unsharded
+    function's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.collectives import sum_over_group
+    from repro_torch.distributed.sharding import batch_dim, dim_placements
+    mesh = logits.device_mesh
+    bd = batch_dim(mesh, logits.shape[0])
+    model = mesh.get_group("model")
+    data = ([mesh.get_group(a) for a in mesh.mesh_dim_names if a != "model"]
+            if bd is not None else [])
+
+    def body(lg, lb):
+        lg = lg.float()
+        V = lg.shape[-1]
+        mask = (lb != ignore_id).float()
+        label = lb.clamp_min(0).long() - dist.get_rank(model) * V
+        mine = (label >= 0) & (label < V)
+        gold = torch.take_along_dim(lg, label.clamp(0, V - 1)[..., None],
+                                    dim=-1)[..., 0]
+        gold = sum_over_group(torch.where(mine, gold, 0.0), model)
+        nll = ((_LogSumExp.apply(lg, model) - gold) * mask).sum()
+        den = mask.sum()
+        for g in data:
+            nll, den = sum_over_group(nll, g), sum_over_group(den, g)
+        return nll / den.clamp_min(1.0)
+
+    return local_map(body, out_placements=dim_placements(mesh),
+                     in_placements=(dim_placements(mesh, data=bd, model=2),
+                                    dim_placements(mesh, data=bd)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        logits, labels)

@@ -33,7 +33,15 @@ does; ``decode_step(..., route_rows=True)`` routes each row alone, as the
 reference's server does by decoding each lane at batch 1 under vmap.
 
 ``Model`` runs on ``cuda`` unless it is given another device; it raises when
-no card is present and the caller asked for none.
+no card is present and the caller asked for none. On ``meta`` (the
+dry-run) it computes shapes only.
+
+Under a mesh (``ParallelCtx(mesh=...)``) the params, the batch and the
+cache are DTensors (``distributed.sharding``'s placements): the model's
+ops run as DTensor ops, and the regions without a sharding rule (the
+attention between its projections, the scan, the routed experts, the
+head's product and the loss) run under ``local_map``. ``make_cache``
+then makes the cache sharded as ``batch_shardings`` says.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ def resolve_device(device=None) -> torch.device:
     """``device`` as a torch.device, ``cuda`` when None; raises when CUDA is
     asked for (or defaulted to) and no card is present."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
@@ -109,15 +117,47 @@ class Model:
     def _kind(self) -> str:
         return _KINDS[self.cfg.family]
 
+    def _steps(self, S: int, like, B: int = 0):
+        """arange(S) on ``like``'s device, or with ``B`` the (B, S)
+        positions of a batch. Under a mesh (``like`` a DTensor) a DTensor:
+        the steps replicated, the positions with the batch over the data
+        axes where they divide it."""
+        if not transformer.is_dtensor(like):
+            steps = torch.arange(S, device=like.device)
+            return steps.expand(B, S) if B else steps
+        from torch.distributed.tensor import DTensor
+        from repro_torch.distributed.sharding import (batch_dim,
+                                                      dim_placements, dp_size)
+        mesh = self.pctx.mesh
+        steps = torch.arange(S, device=like.to_local().device)
+        if not B:
+            return DTensor.from_local(steps, mesh, dim_placements(mesh),
+                                      run_check=False)
+        rows = B if batch_dim(mesh, B) is None else B // dp_size(mesh)
+        return DTensor.from_local(steps.expand(rows, S), mesh,
+                                  transformer.act_placements(mesh, B),
+                                  run_check=False, shape=(B, S),
+                                  stride=(0, 1))
+
     def _encode(self, params, enc_embeds) -> torch.Tensor:
         """Bidirectional encoder over precomputed frame embeddings, then
         the final ``enc_ln`` RMSNorm."""
         B, Se, _ = enc_embeds.shape
-        pos = torch.arange(Se, device=enc_embeds.device).expand(B, Se)
+        pos = self._steps(Se, enc_embeds, B)
         h, _, _ = transformer.run_stack(
             params["encoder"], enc_embeds.to(self.cdt), self.cfg, "dense",
             positions=pos, causal=False, pctx=self.pctx)
         return layers.rms_norm(h, params["enc_ln"], self.cfg.norm_eps)
+
+    def _embed(self, params, tok) -> torch.Tensor:
+        """Embedding rows of ``tok`` (``F.embedding``: the reference's
+        indexing, whose DTensor rule, unlike indexing's, keeps a
+        vocab-sharded table sharded under a mesh: each rank looks up the
+        rows it holds and the lookups are summed; one op on both paths, so
+        a step on one rank's mesh and the same step unsharded run the same
+        backward)."""
+        h = torch.nn.functional.embedding(tok, params["embed"]).to(self.cdt)
+        return transformer._constrain_act(h, self.pctx)
 
     def _embed_in(self, params, batch) -> Tuple[torch.Tensor, ...]:
         """Returns (h, positions, mrope_positions or None)."""
@@ -127,18 +167,42 @@ class Model:
         else:
             tok = batch["tokens"]
             B, S = tok.shape
-            h = params["embed"][tok].to(self.cdt)
-        steps = torch.arange(S, device=h.device)
+            h = self._embed(params, tok)
         if "pos" in batch:
-            positions = batch["pos"][:, None] + steps[None, :]
+            positions = batch["pos"][:, None] + self._steps(S, h)[None, :]
         else:
-            positions = steps.expand(B, S)
+            positions = self._steps(S, h, B)
         return h, positions, batch.get("mrope_pos")
 
     def _head(self, params, h) -> torch.Tensor:
+        """Final norm and the logits (f32). Under a mesh the product runs
+        under ``local_map``, the vocab over "model" and the batch over the
+        data axes where they divide it, as the reference's ``shard_map``
+        head: GSPMD's dot partitioner made full-vocab (B, S, V) f32
+        tensors there. A rank's gradient of h is its vocab shard's share
+        (partial over "model"); its gradient of the weight is its rows'
+        share (partial over the data axes when they split the batch)."""
         h = layers.rms_norm(h, params["final_ln"], self.cfg.norm_eps)
         w = (params["embed"].T if self.cfg.tie_embeddings
              else params["unembed"]).to(self.cdt)
+        if self.pctx.mesh is not None and transformer.is_dtensor(h):
+            from torch.distributed.tensor.experimental import local_map
+
+            from repro_torch.distributed.sharding import (batch_dim,
+                                                          dim_placements)
+            mesh = self.pctx.mesh
+            bd = batch_dim(mesh, h.shape[0])
+            fn = local_map(
+                lambda hl, wl: hl @ wl,
+                out_placements=dim_placements(mesh, data=bd, model=2),
+                in_placements=(dim_placements(mesh, data=bd),
+                               dim_placements(mesh, model=1)),
+                in_grad_placements=(
+                    dim_placements(mesh, data=bd, model_partial=True),
+                    dim_placements(mesh, model=1,
+                                   data_partial=bd is not None)),
+                device_mesh=mesh, redistribute_inputs=True)
+            return fn(h, w).float()
         return (h @ w).float()
 
     def _backbone(self, params, h, positions, caches=None,
@@ -177,8 +241,20 @@ class Model:
                    device=None) -> Dict[str, Any]:
         """Decode cache, every leaf stacked on leading layer axes, on
         ``device`` (the model's by default; ``meta`` allocates nothing)."""
-        cfg = self.cfg
         device = self.device if device is None else torch.device(device)
+        mesh = self.pctx.mesh
+        if mesh is None:
+            return self._cache(batch_size, max_len, device)
+        # under a mesh the whole cache is laid out on meta, shapes only and
+        # unseen by the dispatch modes that count a step, and each rank
+        # makes only its own shard
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            layout = self._cache(batch_size, max_len, torch.device("meta"))
+        return _sharded_cache(layout, mesh, batch_size, device)
+
+    def _cache(self, batch_size: int, max_len: int, device) -> Dict[str, Any]:
+        cfg = self.cfg
         attn_len = min(max_len, self.window) if self.window else max_len
 
         def stack(one, *prefix):
@@ -249,7 +325,7 @@ class Model:
         result does not depend on the other rows; by default the batch is
         routed jointly, as the reference's ``decode_step``."""
         tok = batch["tokens"]                              # (B,1)
-        h = params["embed"][tok].to(self.cdt)
+        h = self._embed(params, tok)
         positions = batch["pos"][:, None]                  # (B,1)
         h, cache, _ = self._backbone(params, h, positions, caches=cache,
                                      route_rows=route_rows,
@@ -285,6 +361,27 @@ class Model:
             b["mrope_pos"] = sds((3, B, 1), i32)
         b["_cache"] = self.make_cache(B, S, device="meta")
         return b
+
+
+def _sharded_cache(c, mesh, batch_size: int, device):
+    """The cache ``c`` (built on ``meta``, shapes only) as DTensors placed
+    by ``batch_shardings``, each rank making only its own shard on
+    ``device`` (the whole cache is never made on one rank): "pos" slots
+    start at -1, every other leaf at 0, as ``make_cache`` fills them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.packing import tree_unflatten
+    from repro_torch.distributed import sharding
+    placements = sharding.flatten_with_path(
+        sharding.batch_shardings(mesh, c, batch_size))
+    leaves = []
+    for (path, t), (_, p) in zip(sharding.flatten_with_path(c), placements):
+        fill = -1 if path[-1] == "pos" else 0
+        leaves.append(DTensor.from_local(
+            torch.full(sharding.shard_shape(t.shape, mesh, p), fill,
+                       dtype=t.dtype, device=device),
+            mesh, p, run_check=False, shape=t.shape, stride=t.stride()))
+    return tree_unflatten(c, leaves)
 
 
 def build_model(cfg: ModelConfig, pctx: Optional[ParallelCtx] = None,

@@ -24,8 +24,11 @@ ranked and the capacity sized within each group. The serving pool routes
 each lane's token so (the reference decodes each lane at batch 1 under
 ``jax.vmap``), so a request's tokens never depend on its co-residents.
 
-Expert parallelism (``ep_axis``) waits for the distributed slice (ROADMAP
-A.10) and raises.
+Expert parallelism (``ep_axis``, the process group of the mesh axis that
+shards the expert dim) runs inside ``models.transformer._ep_moe_call``'s
+``local_map``, as the reference's runs inside ``shard_map``: each rank
+routes its tokens, computes its E / size experts, and a differentiable sum
+over the group completes the combine.
 
 Shared experts (DeepSeek) are one dense SwiGLU FFN of width
 n_shared * d_ff; the Arctic dense residual is a separate dense FFN added in
@@ -40,9 +43,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
-
-_EP_MESSAGE = ("expert parallelism waits for the distributed slice "
-               "(ROADMAP A.10)")
 
 # ---------------------------------------------------------------------------
 # params
@@ -116,7 +116,9 @@ def _dispatch_compute_combine(x, w, idx, params, m: MoEConfig, e_start: int,
     """Routed output of experts [e_start, e_start + e_local) for x (T,d);
     w/idx (T,k). Tokens routed elsewhere or past the capacity contribute
     zero. With ``groups`` G, the T tokens are G consecutive groups of T/G,
-    each ranked into its own ``capacity`` slots per expert."""
+    each ranked into its own ``capacity`` slots per expert. The expert
+    weights hold all E experts, or just these e_local (a rank's shard
+    under expert parallelism)."""
     T, d = x.shape
     k = idx.shape[1]
     cdt = x.dtype
@@ -152,7 +154,8 @@ def _dispatch_compute_combine(x, w, idx, params, m: MoEConfig, e_start: int,
     buf = x.new_zeros((e_local + 1, groups * rows, d)).index_put(
         (le_s, row), x.repeat_interleave(k, dim=0))  # kept pairs unique
     buf = buf[:e_local]
-    sl = slice(e_start, e_start + e_local)
+    sl = (slice(None) if params["w_gate"].shape[0] == e_local
+          else slice(e_start, e_start + e_local))
     g = torch.bmm(buf, params["w_gate"][sl].to(cdt))
     u = torch.bmm(buf, params["w_up"][sl].to(cdt))
     yb = torch.bmm(F.silu(g) * u, params["w_down"][sl].to(cdt))
@@ -171,23 +174,40 @@ def capacity_for(T: int, m: MoEConfig, num_shards: int = 1) -> int:
 
 
 def moe_routed(params: dict, x: torch.Tensor, m: MoEConfig, *,
-               capacity: Optional[int] = None,
-               ep_axis: Optional[str] = None, groups: int = 1
+               capacity: Optional[int] = None, ep_axis=None,
+               groups: int = 1, combine_dtype=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Routed-experts output for x (T,d) on one device. ``groups`` G routes
-    each of G consecutive groups of T/G tokens alone, its capacity
+    """Routed-experts output for x (T,d). ``groups`` G routes each of G
+    consecutive groups of T/G tokens alone, its capacity
     ``capacity_for(T/G)`` unless ``capacity`` is given; the aux loss is
-    over all T tokens."""
-    if ep_axis is not None:
-        raise NotImplementedError(_EP_MESSAGE)
+    over all T tokens.
+
+    ``ep_axis`` (a process group) shards the expert dim of the weights,
+    which then hold this rank's E / size experts: the rank computes those,
+    and a differentiable sum over the group completes the combine.
+    ``combine_dtype=torch.bfloat16`` halves that sum's payload (partial
+    sums are at most top_k expert outputs, so the loss of precision is
+    benign)."""
     T = x.shape[0]
     if T % groups:
         raise ValueError(f"moe_routed: {T} tokens in {groups} groups")
     cap = capacity if capacity is not None else capacity_for(T // groups, m)
     w, idx, aux = route(params["router"], x, m.top_k)
-    y = _dispatch_compute_combine(x, w, idx, params, m, 0, m.num_experts,
-                                  cap, groups)
-    return y, aux
+    if ep_axis is None:
+        y = _dispatch_compute_combine(x, w, idx, params, m, 0,
+                                      m.num_experts, cap, groups)
+        return y, aux
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import sum_over_group
+    size, rank = dist.get_world_size(ep_axis), dist.get_rank(ep_axis)
+    if m.num_experts % size:
+        raise ValueError(f"{m.num_experts} experts over {size} ranks")
+    e_local = m.num_experts // size
+    y = _dispatch_compute_combine(x, w, idx, params, m, rank * e_local,
+                                  e_local, cap, groups)
+    if combine_dtype is not None:
+        return sum_over_group(y.to(combine_dtype), ep_axis).to(x.dtype), aux
+    return sum_over_group(y, ep_axis), aux
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +216,7 @@ def moe_routed(params: dict, x: torch.Tensor, m: MoEConfig, *,
 
 def moe_ffn(params: dict, x: torch.Tensor, m: MoEConfig, *,
             dense_params: Optional[dict] = None, oracle: bool = False,
-            ep_axis: Optional[str] = None, route_rows: bool = False
+            ep_axis=None, route_rows: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> (y (B,S,d), aux loss). ``dense_params`` is the Arctic
     parallel dense-residual FFN (cfg.moe.dense_residual). ``route_rows``

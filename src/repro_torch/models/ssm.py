@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.attention import default_impl
 
@@ -117,12 +118,37 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t
 # ---------------------------------------------------------------------------
 
 def causal_conv1d(x, w, b):
-    """x (B,S,Ch); w (width,Ch); b (Ch,). Causal depthwise conv."""
+    """x (B,S,Ch); w (width,Ch); b (Ch,). Causal depthwise conv. Under a
+    mesh it runs under ``local_map``, the batch over the data axes and the
+    channels over "model" where they divide (a channel's conv reads its
+    own channel only)."""
+    if is_dtensor(x):
+        return _conv_on_mesh(x, w, b)
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))
     S = x.shape[1]
     out = sum(pad[:, i:i + S] * w[i] for i in range(width))
     return out + b
+
+
+def _conv_on_mesh(x, w, b):
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (batch_dim, dim_placements,
+                                                  model_dim)
+    mesh = x.device_mesh
+    bd, ch = batch_dim(mesh, x.shape[0]), model_dim(mesh, x.shape[2], 0)
+    x_p = dim_placements(mesh, data=bd, model=None if ch is None else 2)
+    w_p = dim_placements(mesh, model=None if ch is None else 1)
+    b_p = dim_placements(mesh, model=ch)
+    partial = bd is not None   # each rank's rows add their weight gradient
+    return local_map(
+        causal_conv1d, out_placements=x_p, in_placements=(x_p, w_p, b_p),
+        in_grad_placements=(
+            x_p, dim_placements(mesh, model=None if ch is None else 1,
+                                data_partial=partial),
+            dim_placements(mesh, model=ch, data_partial=partial)),
+        device_mesh=mesh, redistribute_inputs=True)(x, w, b)
 
 
 def causal_conv1d_step(conv_state, x_t, w, b):
@@ -192,6 +218,10 @@ def scan_impl(device, grad: bool) -> str:
 
 
 def _scan(impl: str, x, dt, A, B, C, chunk: int, init_state):
+    if is_dtensor(x):                     # under a mesh: on local shards
+        from repro_torch.kernels import ops
+        return ops.ssd_on_mesh(lambda x, dt, A, B, C, s: _scan(
+            impl, x, dt, A, B, C, chunk, s), x, dt, A, B, C, init_state)
     if impl == "chunked":
         return ssd_chunked(x, dt, A, B, C, chunk=chunk, init_state=init_state)
     if impl == "kernel":
@@ -223,6 +253,12 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
     y, state = _scan(impl, xh, dt, A, Bm, Cm, s.chunk_size, init_state)
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(b, S, d_in)
+    if is_dtensor(y):
+        # the gradient held to the merged heads' placements before the
+        # view's backward splits it into heads (a dim sharded along
+        # part-heads cannot split)
+        from repro_torch.distributed.sharding import constrain
+        y = constrain(y, y.device_mesh, y.placements)
     y = layers.rms_norm(y * F.silu(z), params["norm_w"])
     return y @ params["w_out"].to(x.dtype), state, xBC_in
 

@@ -26,6 +26,7 @@ reference's nested ``jax.checkpoint``) and its tail block by block.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -33,6 +34,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import (lane_slice, tree_leaves,
                                      tree_map, tree_unflatten)
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import attention, layers, moe, ssm
 
 
@@ -51,16 +53,100 @@ class ParallelCtx:
     score_bf16  — bf16 softmax probabilities in ``sdpa_chunked``'s PV product
     moe_oracle  — MoE blocks run ``moe.moe_dense_oracle`` (every expert on
                   every token; the reference's tests build their models so)
-    ep          — expert parallelism; waits for ROADMAP A.10 and raises
+    mesh        — the ``DeviceMesh`` (named dims, "model" among them) whose
+                  DTensors the params and batch are, or None on one device
+    ep          — expert parallelism: with a mesh, the routed experts run
+                  under ``local_map`` with the expert dim over "model"
+                  (``_ep_moe_call``); without one it changes nothing
+    ep_bf16     — the EP combine's sum over "model" carries bf16
+    constrain   — redistribute activations at block boundaries to batch
+                  over the data axes, the rest replicated
+                  (``_constrain_act``, the reference's sharding constraint)
     """
     attn_impl: Optional[str] = None
     score_bf16: bool = False
     moe_oracle: bool = False
+    mesh: Any = None
     ep: bool = False
+    ep_bf16: bool = False
+    constrain: bool = True
 
-    def __post_init__(self):
-        if self.ep:
-            raise NotImplementedError(moe._EP_MESSAGE)
+    def batch_axes(self):
+        if self.mesh is None:
+            return None
+        return tuple(n for n in self.mesh.mesh_dim_names if n != "model")
+
+
+def act_placements(mesh, batch: int) -> list:
+    """Placements of an activation whose dim 0 is a batch of ``batch``:
+    over the data axes when they divide it, the rest replicated."""
+    from repro_torch.distributed.sharding import batch_dim, dim_placements
+    return dim_placements(mesh, data=batch_dim(mesh, batch))
+
+
+def _constrain_act(x, pctx: ParallelCtx):
+    """Activations (B, S, d): batch over the data axes, rest replicated."""
+    if pctx.mesh is None or not pctx.constrain or not is_dtensor(x):
+        return x
+    from repro_torch.distributed.sharding import constrain
+    # the backward too: the gradient that comes back from the head's
+    # product as partial sums over "model" is summed here
+    return constrain(x, pctx.mesh, act_placements(pctx.mesh, x.shape[0]))
+
+
+def _ep_moe_call(p_moe: dict, xt, cfg: ModelConfig, pctx: ParallelCtx,
+                 route_rows: int = 0):
+    """Routed experts under expert parallelism: ``local_map`` over the
+    mesh with the reference's ``shard_map`` specs, the router replicated,
+    the experts over "model", the tokens over the data axes; the router
+    loss is averaged over the data axes. ``route_rows`` (the sequence
+    length, or 0) routes each batch row alone.
+
+    The gradients' placements say what each rank's local gradient is: the
+    tokens' is partial over "model" (each rank's experts add theirs), the
+    experts' partial over the data axes (each rank's tokens add theirs),
+    the router's partial over every axis. The router loss is the same on
+    every "model" rank, so only rank 0 of that axis passes its gradient
+    on, and the sum over "model" counts it once."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.collectives import sum_over_group
+    from repro_torch.distributed.sharding import dim_placements as pl
+    mesh, m = pctx.mesh, cfg.moe
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    if m.num_experts % sizes["model"]:
+        raise ValueError(f"{m.num_experts} experts do not divide over the "
+                         f"mesh's {sizes['model']} \"model\" ranks")
+    data = pctx.batch_axes()
+    ep_group = mesh.get_group("model")
+    data_groups = [mesh.get_group(a) for a in data]
+    dp = math.prod(sizes[a] for a in data)
+    cdt = torch.bfloat16 if pctx.ep_bf16 else None
+
+    def body(router, wg, wu, wd, xt_l):
+        prm = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+        groups = xt_l.shape[0] // route_rows if route_rows else 1
+        y, aux = moe.moe_routed(prm, xt_l, m, ep_axis=ep_group,
+                                groups=groups, combine_dtype=cdt)
+        for g in data_groups:
+            aux = sum_over_group(aux, g)
+        aux = aux / dp
+        if dist.get_rank(ep_group):
+            aux = aux.detach()
+        return y, aux
+
+    rep, tok, exp = pl(mesh), pl(mesh, data=0), pl(mesh, model=0)
+    fn = local_map(body, out_placements=(tok, rep),
+                   in_placements=(rep, exp, exp, exp, tok),
+                   in_grad_placements=(
+                       pl(mesh, data_partial=True, model_partial=True),
+                       *[pl(mesh, model=0, data_partial=True)] * 3,
+                       pl(mesh, data=0, model_partial=True)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(p_moe["router"], p_moe["w_gate"], p_moe["w_up"],
+              p_moe["w_down"], xt)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
@@ -154,13 +240,13 @@ def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
             y, new = ssm.mamba2_prefill(p["mamba"], h, cfg.d_model, cfg.ssm,
                                         impl=pctx.attn_impl)
             _write(cache, new)
-        return x + y, cache, aux
+        return _constrain_act(x + y, pctx), cache, aux
     self_cache = cache["self"] if kind == "cross" and cache is not None \
         else cache
     out, _ = attn_block_fwd(p, x, cfg, positions=positions, window=window,
                             causal=causal, cache=self_cache, pctx=pctx,
                             mrope_positions=mrope_positions)
-    x = x + out
+    x = _constrain_act(x + out, pctx)
     if kind == "cross":
         hd = cfg.resolved_head_dim
         if cache is not None and enc_memory is None:      # decode: cached KV
@@ -170,18 +256,49 @@ def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
                                           cfg.num_kv_heads, hd)
             if cache is not None:
                 cache = {**cache, "cross_k": ck, "cross_v": cv}
-        x = x + attention.attn_with_kv(
+        x = _constrain_act(x + attention.attn_with_kv(
             p["cross_attn"], layers.rms_norm(x, p["ln_cross"], cfg.norm_eps),
-            ck, cv, cfg.num_heads, hd)
+            ck, cv, cfg.num_heads, hd), pctx)
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if kind == "moe":
+    if kind == "moe" and pctx.ep and pctx.mesh is not None \
+            and not pctx.moe_oracle:
+        B, S, d = h.shape
+        y, aux = _ep_moe_call(p["moe"], h.reshape(B * S, d), cfg, pctx,
+                              route_rows=S if route_rows else 0)
+        y = y.reshape(B, S, d)
+        if "shared" in p["moe"]:
+            y = y + layers.mlp(p["moe"]["shared"], h, "swiglu")
+        if "dense_mlp" in p:
+            y = y + layers.mlp(p["dense_mlp"], h, "swiglu")
+    elif kind == "moe":
         y, aux = moe.moe_ffn(p["moe"], h, cfg.moe,
                              dense_params=p.get("dense_mlp"),
                              oracle=pctx.moe_oracle,
                              route_rows=route_rows)
     else:
         y = layers.mlp(p["mlp"], h, cfg.mlp_type)
-    return x + y, cache, aux
+    return _constrain_act(x + y, pctx), cache, aux
+
+
+def _per_layer(stack: dict) -> list:
+    """The layers of a stacked tree: ``lane_slice`` views of plain tensors.
+    Under a mesh each DTensor leaf is unbound once, and each layer's leaf
+    is held to its placements in the backward (``sharding.constrain``),
+    so the layer's gradient is reduced to its parameter's shards as soon
+    as the layer's backward ends, as GSPMD does inside the reference's
+    scan. (Counted on meta at 16 of llama3-405b's layers on a 16 x 16
+    mesh: a DTensor stack's per-layer select made, in the backward, a
+    zero stack holding each layer's gradient, which autograd held until
+    it summed them, 225 of a 321 GB peak; unbound, the layers' unreduced
+    gradients, partial sums over the data axes, were 172 of 242 GB.)"""
+    n = _depth(stack)
+    leaves = tree_leaves(stack)
+    if not is_dtensor(leaves[0]):
+        return [lane_slice(stack, i) for i in range(n)]
+    from repro_torch.distributed.sharding import constrain
+    cols = [[constrain(x, x.device_mesh, x.placements)
+             for x in torch.unbind(t, 0)] for t in leaves]
+    return [tree_unflatten(stack, [c[i] for c in cols]) for i in range(n)]
 
 
 def _depth(tree) -> int:
@@ -224,10 +341,35 @@ class _Recompute(torch.autograd.Function):
     def backward(ctx, *grads):
         saved = [t.detach() for t in ctx.saved_tensors]
         ints, tensors = saved[:ctx.n_int], saved[ctx.n_int:]
-        _, vjp = torch.func.vjp(lambda *t: ctx.fn(*ints, *t), *tensors)
         gs = tuple(g.detach() for g in grads)
+        if any(is_dtensor(t) for t in tensors):
+            return (None, None, *([None] * ctx.n_int),
+                    *_autograd_vjp(ctx.fn, ints, tensors, gs))
+        _, vjp = torch.func.vjp(lambda *t: ctx.fn(*ints, *t), *tensors)
         return (None, None, *([None] * ctx.n_int),
                 *vjp(gs if len(gs) > 1 else gs[0]))
+
+
+def _autograd_vjp(fn, ints, tensors, grads) -> tuple:
+    """The vjp of ``fn(*ints, *tensors)`` by ``torch.autograd`` (for
+    DTensors: their ``local_map`` regions do not see through
+    ``torch.func``'s wrappers); an input that does not reach the output
+    gets a zero gradient."""
+    inputs = [t.requires_grad_(t.is_floating_point()) for t in tensors]
+    with torch.enable_grad():
+        out = fn(*ints, *inputs)
+        out = out if isinstance(out, tuple) else (out,)
+        # an output may not need grad (the router loss on a "model" rank
+        # other than 0 of an expert-parallel block)
+        pairs = [(o, g) for o, g in zip(out, grads) if o.requires_grad]
+        need = [i for i, t in enumerate(inputs) if t.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [inputs[i] for i in need],
+                                  [g for _, g in pairs], allow_unused=True)
+    res = [None] * len(inputs)
+    for i, g in zip(need, got):
+        res[i] = torch.zeros_like(inputs[i]) if g is None else g
+    return tuple(res)
 
 
 def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
@@ -278,15 +420,13 @@ def run_stack(params_stack: dict, x, cfg: ModelConfig, kind: str, *,
               enc_memory=enc_memory)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cross = []
-    for i in range(_depth(params_stack)):
+    for i, layer in enumerate(_per_layer(params_stack)):
         if remat:
-            x, a = _remat_block(lane_slice(params_stack, i), x, cfg, kind,
-                                **kw)
+            x, a = _remat_block(layer, x, cfg, kind, **kw)
             aux = aux + a
             continue
         cache_l = None if caches is None else lane_slice(caches, i)
-        x, cache_l, a = block_fwd(lane_slice(params_stack, i), x, cfg, kind,
-                                  cache=cache_l, **kw)
+        x, cache_l, a = block_fwd(layer, x, cfg, kind, cache=cache_l, **kw)
         aux = aux + a
         if kind == "cross" and caches is not None and enc_memory is not None:
             cross.append((cache_l["cross_k"], cache_l["cross_v"]))
@@ -353,16 +493,16 @@ def run_hybrid(params: dict, x, cfg: ModelConfig, *, positions,
     n_super, period, n_tail = hybrid_layout(cfg)
     kw = dict(positions=positions, window=window, pctx=pctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    supers = _per_layer(params["blocks"])
     if _remat(cfg, caches, x, params):
         for s in range(n_super):
-            x = _remat_superblock(lane_slice(params["blocks"], s),
-                                  params["shared"], x, cfg, **kw)
+            x = _remat_superblock(supers[s], params["shared"], x, cfg, **kw)
         if n_tail:
             x, _, aux = run_stack(params["tail"], x, cfg, "ssm", **kw)
         return x, None, aux
     for s in range(n_super):
         ssm_c = None if caches is None else lane_slice(caches["ssm"], s)
-        x, _, a = run_stack(lane_slice(params["blocks"], s), x, cfg, "ssm",
+        x, _, a = run_stack(supers[s], x, cfg, "ssm",
                             caches=ssm_c, **kw)
         attn_c = None if caches is None else lane_slice(caches["attn"], s)
         x, _, a2 = block_fwd(params["shared"], x, cfg, "dense",

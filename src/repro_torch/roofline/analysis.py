@@ -9,15 +9,19 @@ counted per device). PyTorch runs eagerly and compiles no program, so the
 port counts them by running the step once (``roofline.counting``): FLOPs
 from ``torch.utils.flop_counter``, bytes from every aten op's operands and
 results, and each kernel entry of ``kernels.ops`` as one leaf whose work
-comes from its shapes. A step of one card has no collective; its term is
-0 until the distributed slice brings a mesh (ROADMAP A.10), and with it
-the reference's ``parse_collectives`` of HLO text, which has no
-counterpart here yet.
+comes from its shapes. The collective term comes from the collectives the
+run issues, recorded by ``counting.CollectiveCounter`` as ``CollectiveOp``s
+and priced by the reference's rules (operand bytes over the link rate): a
+step on a mesh (DTensor arguments) records DTensor's redistributions and
+the explicit sums of a ``local_map`` region; a step on one card records
+none, and its term is 0. The reference's ``parse_collectives`` of HLO text
+is kept for HLO from elsewhere.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import re
+from typing import Dict, List, Optional
 
 # ---- hardware constants (per chip; the default is one NVIDIA H100) --------
 
@@ -61,6 +65,95 @@ _HW_PRESETS: Dict[str, dict] = {
 }
 
 
+# ---- HLO collective parsing (the reference's, verbatim) -------------------
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "f8e4m3fn": 1, "f8e5m2": 1, "f8e4m3": 1,
+    "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4,
+    "s64": 8, "u64": 8, "f64": 8, "c64": 8, "c128": 16,
+}
+
+_SHAPE_RE = re.compile(r"(\w+)\[([0-9,]*)\]")
+_COLL_RE = re.compile(
+    r"=\s*(\([^)]*\)|\w+\[[^\]]*\](?:\{[^}]*\})?)\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(-start|-done)?\b")
+_GROUPS_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_GROUPS_LEGACY_RE = re.compile(r"replica_groups=\{\{([0-9,]+)\}")
+
+
+def _shape_bytes(typespec: str) -> int:
+    total = 0
+    for dtype, dims in _SHAPE_RE.findall(typespec):
+        if dtype not in _DTYPE_BYTES:
+            continue
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                n *= int(d)
+        total += n * _DTYPE_BYTES[dtype]
+    return total
+
+
+@dataclasses.dataclass
+class CollectiveOp:
+    kind: str
+    result_bytes: int
+    group_size: int
+
+    @property
+    def operand_bytes(self) -> int:
+        if self.kind == "all-gather":
+            return self.result_bytes // max(self.group_size, 1)
+        if self.kind == "reduce-scatter":
+            return self.result_bytes * self.group_size
+        return self.result_bytes
+
+    @property
+    def traffic_bytes(self) -> int:
+        """Ring-model per-device traffic."""
+        n = max(self.group_size, 1)
+        frac = (n - 1) / n if n > 1 else 0.0
+        if self.kind == "all-reduce":
+            return int(2 * self.result_bytes * frac)
+        if self.kind == "all-gather":
+            return int(self.result_bytes * frac)
+        if self.kind == "reduce-scatter":
+            return int(self.result_bytes * self.group_size * frac)
+        return int(self.result_bytes * frac)
+
+
+def parse_collectives(hlo_text: str) -> List[CollectiveOp]:
+    ops: List[CollectiveOp] = []
+    for line in hlo_text.splitlines():
+        m = _COLL_RE.search(line)
+        if not m:
+            continue
+        typespec, kind, suffix = m.groups()
+        if suffix == "-done":
+            continue
+        rb = _shape_bytes(typespec)
+        gm = _GROUPS_RE.search(line)
+        if gm:
+            gsize = int(gm.group(2))
+        else:
+            gl = _GROUPS_LEGACY_RE.search(line)
+            gsize = len(gl.group(1).split(",")) if gl else 1
+        ops.append(CollectiveOp(kind, rb, gsize))
+    return ops
+
+
+def collective_totals(ops) -> tuple:
+    """(operand bytes, ring traffic bytes, operand bytes by kind) of a list
+    of ``CollectiveOp``s, as the reference sums its HLO's."""
+    by_kind: Dict[str, int] = {}
+    for op in ops:
+        by_kind[op.kind] = by_kind.get(op.kind, 0) + op.operand_bytes
+    return (sum(op.operand_bytes for op in ops),
+            sum(op.traffic_bytes for op in ops), by_kind)
+
+
 def model_flops(n_params: float, n_tokens: float, kind: str) -> float:
     """6·N·D for train (fwd+bwd), 2·N·D for inference forward."""
     return (6.0 if kind == "train" else 2.0) * n_params * n_tokens
@@ -80,7 +173,7 @@ class RooflineReport:
     chips: int
     flops_per_dev: float
     bytes_per_dev: float
-    coll_operand_bytes: int           # 0 on one card
+    coll_operand_bytes: int           # 0 on one card (no collective)
     coll_traffic_bytes: int
     coll_by_kind: Dict[str, int]
     peak_mem_bytes: int
@@ -205,18 +298,22 @@ def attn_kernel_io_bytes(cfg, n_tokens_global: int, tp: int, dp: int,
 
 
 def analyze_step(fn, *args, arch: str, shape: str, n_params: float,
-                 n_tokens: float, kind: str, hw: Optional[HW] = None
-                 ) -> RooflineReport:
+                 n_tokens: float, kind: str, hw: Optional[HW] = None,
+                 mesh: str = "1", chips: int = 1) -> RooflineReport:
     """Run ``fn(*args)`` once under ``counting.count_step`` and build its
-    report on one device. ``peak_mem_bytes`` is the CUDA allocator's peak
-    above what it held before the call when the args lie on a card, else
-    0; ``arg_bytes`` the args' tensor bytes."""
+    per-device report: on one device, or on a mesh of ``chips`` (named
+    ``mesh``) when the args are DTensors. ``peak_mem_bytes`` is the CUDA
+    allocator's peak above what it held before the call when the args lie
+    on a card, else 0; ``arg_bytes`` the args' (local) tensor bytes; the
+    collective term prices the collectives the run issued."""
     from repro_torch.roofline import counting
     c = counting.count_step(fn, *args)
+    operand, traffic, by_kind = collective_totals(c.collectives)
     return RooflineReport(
-        arch=arch, shape=shape, mesh="1", chips=1,
+        arch=arch, shape=shape, mesh=mesh, chips=chips,
         flops_per_dev=float(c.flops), bytes_per_dev=float(c.bytes),
-        coll_operand_bytes=0, coll_traffic_bytes=0, coll_by_kind={},
+        coll_operand_bytes=operand, coll_traffic_bytes=traffic,
+        coll_by_kind=by_kind,
         peak_mem_bytes=int(c.peak_bytes), arg_bytes=int(c.arg_bytes),
         model_flops_global=model_flops(n_params, n_tokens, kind),
         hw=hw or HW(), bytes_by_tag=dict(c.bytes_by_tag),
@@ -261,7 +358,7 @@ class IntensityProfile:
         hw = hw or HW()
         tc = c.flops / hw.peak_flops
         tm = c.bytes / hw.hbm_bw
-        tl = 0.0                       # one card: no collective
+        tl = collective_totals(c.collectives)[0] / hw.ici_bw
         total = tc + tm + tl
         terms = {"compute": tc, "memory": tm, "collective": tl}
         return cls(

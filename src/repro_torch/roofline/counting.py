@@ -25,13 +25,24 @@ A leaf's shapes are read through the ``torch.func`` wrappers of its
 operands, so a call under ``vmap`` counts every lane. Work done by a
 leaf's backward (flash attention recomputes through ``sdpa_chunked``)
 is counted op by op, as it runs the same ops on every device.
+
+A step on a mesh (DTensor arguments) is counted per device: the topmost
+mode hands every DTensor op back to DTensor (``NotImplemented``), so the
+modes see the ops each rank runs on its local shards, the collectives
+DTensor issues for them among those, and the kernel leaves count their
+``local_map`` calls' local shapes. ``CollectiveCounter`` records every
+c10d and functional collective as a ``CollectiveOp`` (kind, result bytes,
+group size) with the DTensor op that caused it, and ``LiveBytes`` the peak
+of the bytes held by the tensors the step makes, on any device (``meta``
+included), beyond those of its arguments.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
-from typing import Dict
+import weakref
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -173,6 +184,10 @@ def _tensor_bytes(tree) -> int:
     return 0
 
 
+def _dtensor_op(types) -> bool:
+    return any(t.__name__ == "DTensor" for t in types)
+
+
 class _ByteMode(TorchDispatchMode):
     """Adds up every aten op's operand and result bytes (views and
     allocations excepted)."""
@@ -182,6 +197,8 @@ class _ByteMode(TorchDispatchMode):
         self.by_op: Dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not func.is_view and func not in _NO_TRAFFIC:
@@ -189,6 +206,139 @@ class _ByteMode(TorchDispatchMode):
             self.by_op[name] = (self.by_op.get(name, 0) + _tensor_bytes(args)
                                 + _tensor_bytes(kwargs) + _tensor_bytes(out))
         return out
+
+
+# the collectives a step can issue: c10d's ops (``torch.distributed``'s
+# calls) and the functional ones (DTensor's redistributions, ``funcol``),
+# by op name -> (the reference's HLO kind, where the result is: "out" or
+# the index of the argument the op writes)
+_COLLECTIVES = {
+    "all_reduce": ("all-reduce", "out"), "all_reduce_": ("all-reduce", 0),
+    "allreduce_": ("all-reduce", 0),
+    "all_gather_into_tensor": ("all-gather", "out"),
+    "all_gather_into_tensor_out": ("all-gather", "out"),
+    "allgather_": ("all-gather", 0), "_allgather_base_": ("all-gather", 0),
+    "allgather_into_tensor_coalesced_": ("all-gather", 0),
+    "reduce_scatter_tensor": ("reduce-scatter", "out"),
+    "reduce_scatter_": ("reduce-scatter", 0),
+    "_reduce_scatter_base_": ("reduce-scatter", 0),
+    "all_to_all_single": ("all-to-all", "out"),
+    "alltoall_base_": ("all-to-all", 0), "alltoall_": ("all-to-all", 0),
+    "shard_dim_alltoall": ("all-to-all", "out"),
+    "broadcast": ("broadcast", "out"), "broadcast_": ("broadcast", 0),
+    "send": ("collective-permute", 0),
+}
+_COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional",
+                          "_dtensor")
+
+
+def _group(args):
+    """The process group among a collective's arguments (c10d's boxed
+    ProcessGroup, or a functional collective's group name), or None."""
+    import torch.distributed as dist
+    from torch.distributed import distributed_c10d as c10d
+    for a in args:
+        if type(a).__name__ == "ScriptObject":      # c10d's ops: boxed
+            try:
+                return dist.ProcessGroup.unbox(a)
+            except RuntimeError:                    # a ReduceOp
+                continue
+        if isinstance(a, str):
+            try:
+                return c10d._resolve_process_group(a)
+            except (KeyError, RuntimeError, ValueError):
+                continue
+    return None
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Records the collectives a run issues as ``CollectiveOp``s (kind,
+    result bytes, group size), each in ``ops`` beside ``causes``: the
+    DTensor op whose dispatch issued it (the last one seen), or "" for a
+    collective called directly, and ``groups``: the global ranks of its
+    group. It hands DTensor ops back to DTensor, so it sees the
+    collectives DTensor issues for them."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list = []
+        self.causes: List[str] = []
+        self.groups: List[tuple] = []
+        self._cause = ""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            self._cause = str(func.overloadpacket)
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        ns = func.namespace
+        name = func.overloadpacket.__name__
+        if ns in _COLLECTIVE_NAMESPACES and name in _COLLECTIVES:
+            from repro_torch.roofline.analysis import CollectiveOp
+            kind, where = _COLLECTIVES[name]
+            import torch.distributed as dist
+            result = out if where == "out" else args[where]
+            pg = _group(args)
+            ranks = () if pg is None else tuple(
+                dist.get_process_group_ranks(pg))
+            self.ops.append(CollectiveOp(kind, _tensor_bytes(result),
+                                         max(len(ranks), 1)))
+            self.causes.append(self._cause if ns != "c10d" else "")
+            self.groups.append(ranks)
+        return out
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak of the bytes held by the storages the run makes (``peak``),
+    tracked from each op's outputs until the last tensor on a storage dies
+    (the outputs of views and in-place ops share a storage already counted,
+    or an argument's). Works on ``meta`` tensors, which have storages of
+    their sizes and no memory."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, list] = {}   # storage -> [bytes, tensors]
+
+    def _release(self, key: int) -> None:
+        entry = self._held.get(key)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] == 0:
+            self.live -= entry[0]
+            del self._held[key]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        seen = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            key = t.untyped_storage()._cdata
+            if key in seen and key not in self._held:
+                continue                    # an argument's storage
+            entry = self._held.get(key)
+            if entry is None:
+                entry = self._held[key] = [t.untyped_storage().nbytes(), 0]
+                self.live += entry[0]
+                self.peak = max(self.peak, self.live)
+            entry[1] += 1
+            weakref.finalize(t, self._release, key)
+        return out
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return []
 
 
 @dataclasses.dataclass
@@ -205,6 +355,10 @@ class StepCounts:
     leaf_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     peak_bytes: int = 0
     arg_bytes: int = 0
+    collectives: list = dataclasses.field(default_factory=list)
+    collective_causes: List[str] = dataclasses.field(default_factory=list)
+    collective_groups: List[tuple] = dataclasses.field(default_factory=list)
+    live_peak_bytes: int = 0
 
 
 def _contiguous(out):
@@ -232,6 +386,10 @@ def _kernel_leaves(counts: StepCounts):
     def leaf(fn, name, tag, work):
         @functools.wraps(fn)
         def counted(*args, **kwargs):
+            if any(_dtensor_op((type(a),)) for a in args):
+                # under a mesh: the call runs its local_map, whose calls on
+                # the local shards are the ones counted
+                return fn(*args, **kwargs)
             if not depth[0]:
                 flops, nbytes = work(*args, **kwargs)
                 counts.flops_by_tag[tag] = (counts.flops_by_tag.get(tag, 0)
@@ -278,6 +436,30 @@ def _kernel_leaves(counts: StepCounts):
             setattr(owner, attr, fn)
 
 
+@contextlib.contextmanager
+def _uncounted_shape_propagation():
+    """Within the block, DTensor's shape propagation (it runs each new op
+    once on fake tensors of the global shapes to learn its output's shape)
+    runs with no dispatch mode active: it is not part of any rank's work."""
+    try:
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    except ImportError:
+        yield
+        return
+    real = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    @functools.wraps(real)
+    def quiet(self, op_schema):
+        with _disable_current_modes():
+            return real(self, op_schema)
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = quiet
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = real
+
+
 def _first_device(tree) -> torch.device:
     if isinstance(tree, torch.Tensor):
         return tree.device
@@ -290,11 +472,23 @@ def _first_device(tree) -> torch.device:
     return None
 
 
+def _local_bytes(tree) -> int:
+    """``_tensor_bytes`` of ``tree`` with each DTensor's local shard."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(tree):
+        return _tensor_bytes(tree.to_local())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    return _tensor_bytes(tree)
+
+
 def count_step(fn, *args) -> StepCounts:
-    """Run ``fn(*args)`` once and count its FLOPs and bytes (see the module
-    docstring). The step runs for real: a step that updates state in place
-    does so."""
-    counts = StepCounts(arg_bytes=_tensor_bytes(args))
+    """Run ``fn(*args)`` once and count its FLOPs, bytes, collectives and
+    live bytes, per device (see the module docstring). The step runs for
+    real: a step that updates state in place does so."""
+    counts = StepCounts(arg_bytes=_local_bytes(args))
     dev = _first_device(args)
     on_card = dev is not None and dev.type == "cuda"
     if on_card:
@@ -303,8 +497,14 @@ def count_step(fn, *args) -> StepCounts:
         torch.cuda.reset_peak_memory_stats(dev)
     flop_mode = FlopCounterMode(display=False)
     byte_mode = _ByteMode()
-    with _kernel_leaves(counts), byte_mode, flop_mode:
+    live = LiveBytes()
+    coll = CollectiveCounter()       # topmost: it hands DTensor ops back
+    with _kernel_leaves(counts), _uncounted_shape_propagation(), \
+            flop_mode, byte_mode, live, coll:
         fn(*args)
+    counts.collectives, counts.collective_causes = coll.ops, coll.causes
+    counts.collective_groups = coll.groups
+    counts.live_peak_bytes = live.peak
     if on_card:
         torch.cuda.synchronize(dev)
         counts.peak_bytes = torch.cuda.max_memory_allocated(dev) - base

@@ -1,0 +1,162 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) against the
+reference's, on the CPU: the reduced StableLM-2 x train_4k cell of the
+reference's ``test_small_multipod_dryrun_cell`` on a (2, 2, 2) ("pod",
+"data", "model") mesh, counted on ``meta`` tensors inside a ``"fake"``
+process group of 8 ranks (made in this process and destroyed after each
+test), and a cell that fails. The reference's numbers come from one child
+python with 8 XLA host devices, which lowers and compiles the same cell.
+
+The port counts the path it runs on cards (B3 as a leaf, from its local
+shapes); the reference's CPU dry-run counts XLA's attention. Only the
+argument bytes are compared between the two: params, AdamW's moments and
+the batch, each rank's shards, which both packages place by the same
+rules.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES_BY_NAME
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import Model
+from repro_torch.roofline import counting
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+OVERRIDES = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=4,
+                 head_dim=32, d_ff=256, vocab_size=512)
+
+REFERENCE = """
+import json, sys
+import repro.compat  # noqa: F401
+from repro.launch import dryrun
+from repro.launch.mesh import make_mesh
+mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+with mesh:
+    lowered, n_tok, kind, model = dryrun.lower_cell(
+        "stablelm-1.6b", "train_4k", mesh, overrides=OVERRIDES)
+    c = lowered.compile()
+print(json.dumps({"arg_bytes": c.memory_analysis().argument_size_in_bytes}))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref():
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    res = subprocess.run([sys.executable, "-c", "OVERRIDES = "
+                          + repr(OVERRIDES) + "\n" + REFERENCE],
+                         capture_output=True, text=True, timeout=600,
+                         env=env)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def cell():
+    """The cell counted on meta in a fake world of 8 ranks."""
+    with dryrun.fake_world(8):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"),
+                         device_type="cpu")
+        c, n_tokens, kind, model, specs = dryrun.count_cell(
+            "stablelm-1.6b", "train_4k", mesh, overrides=OVERRIDES)
+        return dict(counts=c, kind=kind, n_tokens=n_tokens,
+                    spec_bytes=dryrun.spec_local_bytes(specs, mesh),
+                    by_axis=dryrun.coll_by_axis(c, mesh))
+
+
+def test_arg_bytes_match_reference(ref, cell):
+    """Rank 0's argument bytes equal the reference's
+    ``memory_analysis().argument_size_in_bytes`` for the same cell, but for
+    the two scalars the port's count leaves out (0-dim tensors count no
+    bytes): AdamW's int32 step count and the f32 learning rate."""
+    scalars = 4 + 4
+    assert cell["counts"].arg_bytes + scalars == ref["arg_bytes"]
+    assert cell["spec_bytes"] == cell["counts"].arg_bytes
+
+
+def test_pod_axis_carries_collectives(cell):
+    """The cell's collectives run over every mesh axis, the pod axis
+    among them (its FSDP gathers and gradient reductions)."""
+    assert cell["by_axis"].get("pod", 0) > 0
+    assert cell["by_axis"].get("model", 0) > 0
+    assert sum(cell["by_axis"].values()) > 0
+
+
+def test_flops_cover_the_unsharded_step(cell):
+    """Rank 0's FLOPs x 8 ranks are at least the unsharded step's (counted
+    on meta too): sharding splits the work, and may repeat some of it."""
+    cfg = dataclasses.replace(configs.get("stablelm-1.6b"), **OVERRIDES)
+    from repro_torch import optim
+    from repro_torch.core import packing
+    from repro_torch.launch.train import make_train_step
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    model = Model(cfg, device="meta")
+    with FakeTensorMode():
+        shapes = Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+    params = packing.tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), shapes)
+    batch = model.input_specs(SHAPES_BY_NAME["train_4k"])
+    opt = optim.adamw()
+    plain = counting.count_step(make_train_step(model, opt), params,
+                                opt.init(params), batch,
+                                torch.zeros((), device="meta"))
+    assert cell["counts"].flops * 8 >= plain.flops
+    assert cell["counts"].leaf_calls == {"flash_attention": 4}
+
+
+def test_failing_cell_prints_fail(tmp_path, capsys):
+    """A cell that cannot be built (a "model" axis of 16 that does not
+    divide 8 experts) prints FAIL and returns an error row."""
+    moe = dataclasses.replace(configs.get("deepseek-moe-16b").moe,
+                              num_experts=8)
+    row = dryrun.run_cell("deepseek-moe-16b", "train_4k", False,
+                          str(tmp_path), overrides=dict(num_layers=1,
+                                                        moe=moe))
+    assert "error" in row and "experts" in row["error"]
+    assert "[dryrun] FAIL deepseek-moe-16b" in capsys.readouterr().out
+
+
+def test_cli_exits_1_on_a_failed_cell(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "stablelm-1.6b", "--shape", "no_such_shape", "--mesh", "single",
+         "--out", str(tmp_path)], capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=SRC))
+    assert res.returncode == 1
+    assert "[dryrun] FAIL stablelm-1.6b" in res.stdout
+    assert "0 ok, 1 failed" in res.stdout
+
+
+@pytest.mark.parametrize("arch, kind", [
+    ("qwen2-vl-7b", "train"), ("seamless-m4t-medium", "train"),
+    ("mamba2-130m", "prefill"), ("zamba2-7b", "decode"),
+    ("deepseek-moe-16b", "decode")])
+def test_every_family_counts_on_a_mesh(arch, kind):
+    """The families and kinds the cells above do not reach, each reduced
+    and at a small shape, build and count on the (2, 2, 2) fake mesh: the
+    vlm's M-RoPE and unused embedding table, the encdec's cross-attention
+    and encoder, the scan under ``local_map``, a sharded decode cache,
+    EP in decode. FLOPs counted, argument bytes two ways equal, and a
+    train step's collectives over the pod axis."""
+    from repro_torch.configs.base import ShapeSpec
+    red = configs.get(arch).reduced()
+    over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)}
+    shape = ShapeSpec("small", 64, 4, kind)
+    with dryrun.fake_world(8):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"),
+                         device_type="cpu")
+        c, _, _, _, specs = dryrun.count_cell(arch, shape, mesh,
+                                              overrides=over)
+        by_axis = dryrun.coll_by_axis(c, mesh)
+        assert c.flops > 0
+        assert c.arg_bytes == dryrun.spec_local_bytes(specs, mesh)
+        if kind == "train":
+            assert by_axis.get("pod", 0) > 0

@@ -111,6 +111,17 @@ def test_encdec_vlm_resnet_slice_modules_load_no_jax(module):
     _alone_loads_no_jax(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.distributed.compression",
+    "repro_torch.distributed.collectives", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun"])
+def test_distributed_slice_modules_load_no_jax(module):
+    """Each module of the distributed slice, imported alone (the source
+    checks below take in every file of the port, these too)."""
+    _alone_loads_no_jax(module)
+
+
 def test_encdec_vlm_resnet_paths_load_no_jax():
     """The vlm and encdec paths of ``models.model`` (prefill, a decode
     step, ``input_specs``) and ResNet's loss, run on the CPU in a fresh

@@ -194,12 +194,34 @@ def test_moe_ffn_matches_reference(oracle, shared, dense):
         assert not torch.allclose(bare, y)
 
 
-def test_expert_parallelism_raises():
-    m, p, _, _, x = _setup()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        moe.moe_routed(p, _t(x), m, ep_axis="model")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ParallelCtx(ep=True)
+def test_expert_parallelism_at_world_one_equals_routed(tmp_path):
+    """Expert parallelism over a gloo group of one rank in this process:
+    ``moe_routed(ep_axis=...)`` and a moe block's ``ParallelCtx(ep=True)``
+    on a (1, 1) mesh (the experts under ``local_map``) equal the routed
+    path bit for bit, with drops (every sum is over one rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import (dim_placements,
+                                                  local_shard)
+    from repro_torch.launch.mesh import make_mesh
+    m, p, _, _, x = _setup(cf=1.0, T=64)
+    want, want_aux = moe.moe_routed(p, _t(x), m)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        y, aux = moe.moe_routed(p, _t(x), m, ep_axis=dist.group.WORLD)
+        assert torch.equal(y, want) and torch.equal(aux, want_aux)
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        pd = {k: local_shard(v, mesh, dim_placements(mesh)) for k, v
+              in p.items()}
+        xd = local_shard(_t(x), mesh, dim_placements(mesh, data=0))
+        cfg = dataclasses.replace(configs.get("deepseek-moe-16b"), moe=m)
+        y, aux = transformer._ep_moe_call(
+            pd, xd, cfg, ParallelCtx(mesh=mesh, ep=True))
+        assert torch.equal(y.full_tensor(), want)
+        assert torch.equal(aux.full_tensor(), want_aux)
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
