@@ -138,20 +138,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    difference, at most one task run twice; [replay] the port's
    ``compare_modes`` over the six committed traces against
    ``BENCH_HISTORY.json``'s last entry, every field exactly;
-9. the distributed layer: the [dryrun] cells (four full-size production
-   cells, each a ``python -m repro_torch.launch.dryrun`` child counting
-   on ``meta`` in a ``"fake"`` process group) and the meta twins start
-   as child processes; on a NCCL group of one rank and a (1, 1) mesh,
-   [dist-ep] the longest [serve-moe] prefill under expert parallelism
-   (f32 and bf16 combine): logits bit-equal to ``ParallelCtx()``'s, B3
-   14 launches each held to its plain version, the card's collectives
-   equal to the same step's on ``meta``; [dist-train] 3 AdamW steps of
-   full-width StableLM-2 (4 layers) with FSDP placements, bit-equal to
-   the same steps unsharded (or the first differing op named and held
-   within 1e-5), 24 B3 launches, ``compressed_psum`` and
-   ``allgather_matmul`` at world size 1, the peak beside the meta
-   count's; then [dryrun] reads the children: every cell OK, argument
-   bytes two ways equal, pod-axis bytes on the multi-pod cell.
+9. the distributed layer: the meta twins count in a child process on
+   ``meta`` in a ``"fake"`` process group; then, with no child running,
+   on a NCCL group of one rank and a (1, 1) mesh, [dist-ep] the longest
+   [serve-moe] prefill under expert parallelism (f32 and bf16 combine):
+   logits bit-equal to ``ParallelCtx()``'s, B3 14 launches each held to
+   its plain version, the card's collectives equal to the same step's on
+   ``meta``; [dist-train] 3 AdamW steps of full-width StableLM-2 (4
+   layers) with FSDP placements, bit-equal to the same steps unsharded by
+   ``torch.autograd`` (or the first differing op named and held within
+   1e-5), step 0's gradients in f32 compute within 1e-5 of each leaf's
+   largest entry of the unsharded ``torch.func`` route's, 24 B3 launches,
+   ``compressed_psum`` and ``allgather_matmul`` at world size 1, the peak
+   beside the meta count's; then [dryrun]: four full-size production
+   cells, each a ``python -m repro_torch.launch.dryrun`` child: every
+   cell OK, argument bytes two ways equal, pod-axis bytes on the
+   multi-pod cell.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
 line, a JSON object with one record per kernel, and the result line
@@ -4013,7 +4015,13 @@ def schedule_profiles(profiles: dict, hbm: float) -> dict:
 # [dist-train]: full-width StableLM-2 1.6B at [train-lm]'s depth and one
 # lane's batch, DIST_TRAIN_STEPS AdamW steps sharded (fsdp) on a (1, 1)
 # mesh against the same steps unsharded; if they are not bit-equal, the
-# first differing op is named and they are held within DIST_TRAIN_RTOL
+# first differing op is named and they are held within DIST_TRAIN_RTOL.
+# The mesh step's step-0 gradients are also held against the unsharded
+# route by torch.func (the one make_train_step takes for plain params, and
+# the lane pool's), each leaf within DIST_TRAIN_RTOL of its largest entry,
+# with the compute in f32, as the 8-rank CPU test holds them: the two
+# routes round in different places (torch.func decomposes SiLU's backward
+# into its sigmoid), which in the train path's bf16 compute is a reading
 DIST_TRAIN_STEPS = 3
 DIST_TRAIN_RTOL = 1e-5
 DIST_TRAIN_LR = 1e-4
@@ -4063,26 +4071,21 @@ def meta_twins(ep_prompt_len: int) -> None:
     print(json.dumps(out))
 
 
-def start_children(ep_prompt_len: int) -> list:
-    """The [dryrun] cells and the meta twins, each a child process started
-    now; ``finish_children`` collects them."""
+def start_child(label: str, args: list):
+    """(label, process, start time) of ``python args...`` started now from
+    the checkout's root; ``finish_children`` collects it."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    root = str(Path(__file__).resolve().parent)
-    kids = []
-    for arch, shape, mesh in DRYRUN_CELLS:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", mesh, "--out",
-               str(DRYRUN_OUT)]
-        kids.append((f"{arch} × {shape} × {mesh}", subprocess.Popen(
-            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), time.perf_counter()))
-    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
-            f"chip_smoke.meta_twins({ep_prompt_len})")
-    kids.append(("meta twins", subprocess.Popen(
-        [sys.executable, "-c", code], cwd=root, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-        time.perf_counter()))
-    return kids
+    return (label, subprocess.Popen(
+        [sys.executable, *args], cwd=str(Path(__file__).resolve().parent),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), time.perf_counter())
+
+
+def start_dryrun_cells() -> list:
+    return [start_child(f"{arch} × {shape} × {mesh}", [
+        "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+        "--mesh", mesh, "--out", str(DRYRUN_OUT)])
+        for arch, shape, mesh in DRYRUN_CELLS]
 
 
 def finish_children(kids: list, timeout: float = 900) -> dict:
@@ -4252,7 +4255,7 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
                                                       dequantize_int8,
                                                       quantize_int8)
     from repro_torch.launch import dryrun
-    from repro_torch.launch.train import make_train_step, mesh_grads
+    from repro_torch.launch.train import mesh_grads
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(configs.get("stablelm-1.6b"),
                               num_layers=TRAIN_LM_LAYERS)
@@ -4264,9 +4267,13 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
     batches = [{k: torch.as_tensor(v, device="cuda")
                 for k, v in bf(0, i).items()} for i in range(DIST_TRAIN_STEPS)]
     # the unsharded steps differentiate as the sharded ones must, by
-    # torch.autograd (torch.func, the lane pool's, differs in the last
-    # bits: it decomposes SiLU's backward into its sigmoid)
-    step_u = make_train_step(plain, opt, autograd=True)
+    # torch.autograd; the torch.func route is held below
+    def step_u(p, o, b, lr):
+        g, m = mesh_grads(plain.loss, p, b)
+        m = dict(m, grad_norm=optim.global_norm(g))
+        updates, o = opt.update(g, o, p, lr)
+        return optim.apply_updates(p, updates), o, m
+
     step_s, _, _, _, model = dryrun.lower_cell(
         "stablelm-1.6b", dist_train_shape(), mesh,
         overrides=dict(num_layers=TRAIN_LM_LAYERS), device="cuda")
@@ -4342,9 +4349,40 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
             raise AssertionError(f"[dist-train] sharded and unsharded steps "
                                  f"differ by {rel:.3g} relative > "
                                  f"{DIST_TRAIN_RTOL}")
-    # compressed_psum of the real gradients on the one-rank group
+    # the mesh step's step-0 gradients against the unsharded torch.func
+    # route's (make_train_step's for plain params), relative to each leaf's
+    # largest entry: held with the compute in f32, read in the path's bf16
     grads, _ = mesh_grads(model.loss, shard(copy(params), place),
                           dbatches[0])
+    f32 = dict(num_layers=TRAIN_LM_LAYERS, compute_dtype="float32")
+    model32 = dryrun.lower_cell("stablelm-1.6b", dist_train_shape(), mesh,
+                                overrides=f32, device="cuda")[4]
+    plain32 = Model(dataclasses.replace(cfg, **f32), device="cuda")
+    func_rel = {}
+    for name, m_mesh, m_plain, g_mesh in (
+            ("f32", model32, plain32, None), ("bf16", model, plain, grads)):
+        if g_mesh is None:
+            g_mesh, _ = mesh_grads(m_mesh.loss, shard(copy(params), place),
+                                   dbatches[0])
+        g_func, _ = torch.func.grad_and_value(m_plain.loss, has_aux=True)(
+            params, batches[0])
+        func_rel[name] = max(
+            (a.full_tensor() - b).abs().max().item()
+            / max(b.abs().max().item(), 1e-30)
+            for a, b in zip(packing.tree_leaves(g_mesh),
+                            packing.tree_leaves(g_func)))
+        del g_mesh, g_func
+    log(f"[dist-train] step 0's gradients on the mesh against the "
+        f"unsharded torch.func route's, largest difference of a leaf's "
+        f"largest entry: f32 compute {func_rel['f32']:.3g} (limit "
+        f"{DIST_TRAIN_RTOL}), bf16 compute {func_rel['bf16']:.3g} (a "
+        f"reading: the routes round in different places)")
+    if not func_rel["f32"] <= DIST_TRAIN_RTOL:
+        raise AssertionError(f"[dist-train] mesh and torch.func gradients "
+                             f"in f32 differ by {func_rel['f32']:.3g} of a "
+                             f"leaf's largest entry > {DIST_TRAIN_RTOL}")
+    del model32, plain32
+    # compressed_psum of the real gradients on the one-rank group
     n_ok = 0
     for g in packing.tree_leaves(grads):
         g = g.to_local()
@@ -4368,8 +4406,8 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
         f"equal to g, g.bfloat16().float() and dequantize(quantize(g)); "
         f"allgather_matmul at world size 1 equal to x @ W")
     log(f"[dist-train] step wall sharded {[round(v, 1) for v in ws]} ms, "
-        f"unsharded {[round(v, 1) for v in wu]} ms (host clock; DTensor's "
-        f"host overhead at one rank); peak above what was held before the "
+        f"unsharded {[round(v, 1) for v in wu]} ms (host clock, no child "
+        f"process running; DTensor's host overhead at one rank); peak above what was held before the "
         f"steps {peak / 1e9:.3f} GB (max_memory_allocated: each step's new "
         f"params and moments and its temporaries), dry-run prediction "
         f"arg + temp {pred / 1e9:.3f} GB (arg "
@@ -4379,7 +4417,8 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
                             "peak_gb": peak / 1e9,
                             "predicted_arg_temp_gb": pred / 1e9,
                             "bit_equal": loss_equal and leaf_equal,
-                            "max_rel": rel}
+                            "max_rel": rel, "func_grad_rel_f32": func_rel["f32"],
+                            "func_grad_rel_bf16": func_rel["bf16"]}
 
 
 def gc_collect() -> None:
@@ -4390,15 +4429,13 @@ def gc_collect() -> None:
     torch.cuda.empty_cache()
 
 
-def dryrun_phase(record: dict, results: dict) -> None:
+def dryrun_phase(results: dict) -> None:
     """[dryrun]: every cell's child exited 0 with an OK line; each row's
     ``arg_gb_dev`` equals the argument bytes summed from its specs; the
     multi-pod cell carries collective bytes on its pod axis; arg + temp
     per device printed beside 80 GB (a reading, not a gate)."""
-    rows = {}
     for (arch, shape, mesh), (label, (rc, text, secs)) in zip(
-            DRYRUN_CELLS, [(k, v) for k, v in results.items()
-                           if k != "meta twins"]):
+            DRYRUN_CELLS, results.items()):
         ok_lines = [ln for ln in text.splitlines()
                     if ln.startswith("[dryrun]")]
         for ln in ok_lines:
@@ -4425,17 +4462,13 @@ def dryrun_phase(record: dict, results: dict) -> None:
             f"; a count against HW.h100's data-sheet constants, not a "
             f"measurement); collectives by axis {row['coll_by_axis_gb']}; "
             f"{secs:.1f} s")
-        rows[label] = {k: row[k] for k in (
-            "arg_gb_dev", "temp_gb_dev", "gflops_dev", "coll_gb_dev",
-            "coll_by_axis_gb", "bottleneck", "roofline_fraction",
-            "count_s")}
-    record["dryrun"] = rows
 
 
 def dist_phases(record: dict) -> None:
-    """Phase 9: the meta twins and the [dryrun] cells start as children,
-    [dist-ep] and [dist-train] run on a NCCL group of one rank meanwhile,
-    then [dryrun] reads the children."""
+    """Phase 9: the meta twins count in a child first; [dist-ep] and
+    [dist-train] run on a NCCL group of one rank with no child running (so
+    that their host walls are not taken under its load); then the
+    [dryrun] cells run as children and [dryrun] reads them."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_mesh
     cfg = configs.get("deepseek-moe-16b")
@@ -4443,13 +4476,16 @@ def dist_phases(record: dict) -> None:
     ep_len = max(len(r.prompt) for r in reqs)
     if DRYRUN_OUT.exists():
         shutil.rmtree(DRYRUN_OUT)
-    kids = start_children(ep_len)
+    root = str(Path(__file__).resolve().parent)
+    kids = [start_child("meta twins", [
+        "-c", f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+        f"chip_smoke.meta_twins({ep_len})"])]
     try:
-        twins_label, twins_proc, _ = kids[-1]
-        text, _ = twins_proc.communicate(timeout=600)
-        if twins_proc.returncode != 0:
+        rc, text, secs = finish_children(kids, timeout=600)["meta twins"]
+        if rc != 0:
             log(text[-3000:])
             raise AssertionError("[dist] the meta twins' child failed")
+        log(f"[dist] meta twins counted in {secs:.1f} s")
         twins = json.loads(text.strip().splitlines()[-1])
         with nccl_world():
             mesh = make_mesh((1, 1), ("data", "model"))
@@ -4458,10 +4494,11 @@ def dist_phases(record: dict) -> None:
             dist_train(record, mesh, twins)
             gc_collect()
         t0 = time.perf_counter()
-        results = finish_children(kids[:-1])
-        log(f"[dryrun] waited {time.perf_counter() - t0:.1f} s for the "
-            f"cells after [dist-ep] and [dist-train]")
-        dryrun_phase(record, results)
+        kids = start_dryrun_cells()
+        results = finish_children(kids)
+        log(f"[dryrun] {len(kids)} cells counted in parallel in "
+            f"{time.perf_counter() - t0:.1f} s")
+        dryrun_phase(results)
     finally:
         for _, p, _ in kids:
             if p.poll() is None:

@@ -345,16 +345,6 @@ def model_dim(mesh, size: int, dim: int):
     return dim if size % axis_sizes(mesh)["model"] == 0 else None
 
 
-def head_placements(mesh, batch: int, num_kv_heads: int,
-                    head_dim: int = 2) -> list:
-    """Placements of a (B, S, H, D) attention operand (or a scan's
-    (b, S, nh, hd) input): the batch over the data axes and the heads over
-    "model", each where it divides (the heads where the KV heads divide,
-    so a rank's query heads read its KV heads)."""
-    return dim_placements(mesh, data=batch_dim(mesh, batch),
-                          model=model_dim(mesh, num_kv_heads, head_dim))
-
-
 class _Constrain(torch.autograd.Function):
     """Redistribute to ``placements`` in the forward AND the backward, as
     the reference's sharding constraint binds the cotangent too."""

@@ -111,10 +111,10 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> Callable:
 
 def reject_dtensor(name: str, *tensors) -> None:
     """Raise if any of ``tensors`` is a DTensor. A kernel takes plain local
-    tensors: a sharded operand reaches it through ``kernels.ops``, which
-    runs the call under ``local_map``, and never by a quiet copy to a
-    replicated tensor."""
+    tensors: under a mesh the model's blocks (``attention_block``, the
+    Mamba2 block) call it inside ``local_map`` on each rank's shard, and a
+    DTensor never reaches it as a quiet copy to a replicated tensor."""
     from repro_torch.distributed.sharding import is_dtensor
     if any(is_dtensor(t) for t in tensors):
-        raise TypeError(f"{name}: got a DTensor; call kernels.ops, which "
-                        f"runs the kernel on each rank's local shard")
+        raise TypeError(f"{name}: got a DTensor; run the kernel inside "
+                        f"local_map on each rank's local shard")

@@ -21,11 +21,8 @@ building blocks of the pool's "kernel" execution mode
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_rmsnorm as rn
 from repro_torch.kernels import packed_gemm as pg
@@ -95,59 +92,14 @@ class _FlashAttention(torch.autograd.Function):
         return out.reshape(n, -1, *out.shape[1:]), 0
 
 
-def _local_map(fn, out_placements, in_placements, in_grad_placements, mesh):
-    from torch.distributed.tensor.experimental import local_map
-    return local_map(fn, out_placements=out_placements,
-                     in_placements=in_placements,
-                     in_grad_placements=in_grad_placements,
-                     device_mesh=mesh, redistribute_inputs=True)
-
-
 def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,
                     active=None):
     """Flash attention with the lane-mask contract: ``active`` (bool/int
     (B,), optional) treats the batch dim as the lane axis; inactive lanes'
     outputs are exact zeros and active lanes are bit-identical to the
-    unmasked call. With ``active=None`` no predicate reaches the kernel.
-
-    DTensor operands (under a mesh) run under ``local_map``: the batch over
-    the data axes and the heads over "model" where they divide; each rank's
-    call gets its plain local tensors."""
-    if is_dtensor(q):
-        if active is not None:
-            raise ValueError("flash_attention: no lane mask under a mesh")
-        from repro_torch.distributed.sharding import head_placements
-        hp = head_placements(q.device_mesh, q.shape[0], k.shape[2])
-        return _local_map(functools.partial(
-            flash_attention, causal=causal, window=window), hp,
-            (hp, hp, hp), None, q.device_mesh)(q, k, v)
+    unmasked call. With ``active=None`` no predicate reaches the kernel."""
     return _FlashAttention.apply(q, k, v, _lane_predicate(active, q), causal,
                                  window)
-
-
-def ssd_on_mesh(fn, x, dt, A, B, C, init_state=None):
-    """``fn(x, dt, A, B, C, init_state)`` (a scan: y and the final state)
-    on DTensor operands under ``local_map``: the batch over the data axes
-    and the heads over "model" where they divide, B and C (shared by the
-    heads) replicated over "model". The gradients of A (over the data
-    axes, when the batch is split) and of B and C (over "model", when the
-    heads are) are partial sums."""
-    from repro_torch.distributed.sharding import (batch_dim, dim_placements,
-                                                  model_dim)
-    mesh = x.device_mesh
-    b, nh = x.shape[0], x.shape[2]
-    bd, hd = batch_dim(mesh, b), model_dim(mesh, nh, 2)
-    on = lambda mdl: dim_placements(mesh, data=bd, model=mdl)  # noqa: E731
-    heads = hd is not None
-    x_p, bc_p, st_p = on(hd), on(None), on(1 if heads else None)
-    a_p = dim_placements(mesh, model=0 if heads else None)
-    a_g = dim_placements(mesh, model=0 if heads else None,
-                         data_partial=bd is not None)
-    bc_g = dim_placements(mesh, data=bd, model_partial=heads)
-    st = None if init_state is None else st_p
-    return _local_map(fn, (x_p, st_p), (x_p, x_p, a_p, bc_p, bc_p, st),
-                      (x_p, x_p, a_g, bc_g, bc_g, st), mesh
-                      )(x, dt, A, B, C, init_state)
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 128, active=None, init_state=None):
@@ -156,14 +108,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, active=None, init_state=None):
     (bool/int (b,), optional) treats the batch dim as the lane axis:
     inactive lanes' y AND final state are exact zeros, active lanes
     bit-identical to the call without it. With ``active=None`` no predicate
-    reaches the kernel. DTensor operands run under ``local_map``
-    (``ssd_on_mesh``)."""
-    if is_dtensor(x):
-        if active is not None:
-            raise ValueError("ssd: no lane mask under a mesh")
-        return ssd_on_mesh(lambda x, dt, A, B, C, s: ssd(
-            x, dt, A, B, C, chunk=chunk, init_state=s),
-            x, dt, A, B, C, init_state)
+    reaches the kernel."""
     return sd.ssd_scan(x, dt, A, B, C, chunk=chunk,
                        active=_lane_predicate(active, x),
                        init_state=init_state)

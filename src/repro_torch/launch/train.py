@@ -32,17 +32,13 @@ from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.model import Model
 
 
-def make_train_step(model: Model, opt: optim.Optimizer, *,
-                    autograd: Optional[bool] = None) -> Callable:
-    """(params, opt_state, batch, lr) -> (params, opt_state, metrics).
-    ``autograd``: differentiate with ``torch.autograd`` (as a step on a
-    mesh must) rather than ``torch.func`` (which a lane pool's ``vmap``
-    needs); None picks by the params, ``torch.autograd`` for DTensors.
-    The two differ in the last bits: ``torch.func`` decomposes some
-    backward ops (SiLU's into its sigmoid)."""
+def make_train_step(model: Model, opt: optim.Optimizer) -> Callable:
+    """(params, opt_state, batch, lr) -> (params, opt_state, metrics),
+    differentiated by ``mesh_grads`` for DTensor params and by
+    ``torch.func`` otherwise."""
 
     def train_step(params, opt_state, batch, lr):
-        if autograd or (autograd is None and _on_mesh(params)):
+        if _on_mesh(params):
             grads, metrics = mesh_grads(model.loss, params, batch)
         else:
             grads, (_, metrics) = torch.func.grad_and_value(

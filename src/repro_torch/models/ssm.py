@@ -219,8 +219,7 @@ def scan_impl(device, grad: bool) -> str:
 
 def _scan(impl: str, x, dt, A, B, C, chunk: int, init_state):
     if is_dtensor(x):                     # under a mesh: on local shards
-        from repro_torch.kernels import ops
-        return ops.ssd_on_mesh(lambda x, dt, A, B, C, s: _scan(
+        return _scan_on_mesh(lambda x, dt, A, B, C, s: _scan(
             impl, x, dt, A, B, C, chunk, s), x, dt, A, B, C, init_state)
     if impl == "chunked":
         return ssd_chunked(x, dt, A, B, C, chunk=chunk, init_state=init_state)
@@ -232,6 +231,37 @@ def _scan(impl: str, x, dt, A, B, C, chunk: int, init_state):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                               init_state=init_state)
     raise ValueError(f"unknown SSD impl {impl!r}")
+
+
+def _scan_on_mesh(fn, x, dt, A, B, C, init_state=None):
+    """``fn(x, dt, A, B, C, init_state)`` (a scan: y and the final state)
+    on DTensor operands under ``local_map``: the batch over the data axes
+    and the heads over "model" where they divide, B and C (shared by the
+    heads) replicated over "model"; each rank's scan (the kernel, on the
+    card) gets its plain local tensors. The gradients of A (over the data
+    axes, when the batch is split) and of B and C (over "model", when the
+    heads are) are partial sums."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (batch_dim, dim_placements,
+                                                  model_dim)
+    mesh = x.device_mesh
+    b, nh = x.shape[0], x.shape[2]
+    bd, hd = batch_dim(mesh, b), model_dim(mesh, nh, 2)
+    on = lambda mdl: dim_placements(mesh, data=bd, model=mdl)  # noqa: E731
+    heads = hd is not None
+    x_p, bc_p, st_p = on(hd), on(None), on(1 if heads else None)
+    a_p = dim_placements(mesh, model=0 if heads else None)
+    a_g = dim_placements(mesh, model=0 if heads else None,
+                         data_partial=bd is not None)
+    bc_g = dim_placements(mesh, data=bd, model_partial=heads)
+    st = None if init_state is None else st_p
+    return local_map(
+        fn, out_placements=(x_p, st_p),
+        in_placements=(x_p, x_p, a_p, bc_p, bc_p, st),
+        in_grad_placements=(x_p, x_p, a_g, bc_g, bc_g, st),
+        device_mesh=mesh, redistribute_inputs=True)(x, dt, A, B, C,
+                                                    init_state)
 
 
 def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,

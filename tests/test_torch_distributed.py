@@ -339,29 +339,66 @@ w = t(ref["ag_w"])
 k = w.shape[0] // world
 out["ag_y"] = allgather_matmul(t(ref["ag_x"]), w[rank * k:(rank + 1) * k],
                                None).tolist()
-# the kernels' entry points on DTensor operands of a (2, 2) mesh
+# the model's blocks with impl="kernel" on DTensor activations of a (2, 2)
+# mesh: each kernel entry point is reached inside the block's local_map with
+# plain local tensors, and each rank's call returns its slice of the
+# unsharded call's result. Inputs and projections are multiples of 1/8 and
+# small, so that the projections are exact in any order of summation and
+# the kernels' inputs on a rank are bit-equal slices of the unsharded ones.
+from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels import ops
+from repro_torch.models import attention, ssm
 mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+calls = {"fa": [], "ssd": []}
+for key, attr in (("fa", "flash_attention"), ("ssd", "ssd")):
+    def spy(*a, _real=getattr(ops, attr), _key=key, **kw):
+        res = _real(*a, **kw)
+        calls[_key].append((type(a[0]).__name__, res))
+        return res
+    setattr(ops, attr, spy)
 gen = torch.Generator().manual_seed(0)
-q = torch.randn(4, 16, 4, 16, generator=gen)
-kk = torch.randn(4, 16, 2, 16, generator=gen)
-v = torch.randn(4, 16, 2, 16, generator=gen)
-hp = sharding.head_placements(mesh, 4, 2)
-dq, dk, dv = (sharding.local_shard(a, mesh, hp) for a in (q, kk, v))
-got = ops.flash_attention(dq, dk, dv, causal=True).full_tensor()
-out["fa_err"] = float((got - ops.flash_attention(q, kk, v)).abs().max())
-x = torch.randn(4, 32, 4, 16, generator=gen)
-dt = torch.rand(4, 32, 4, generator=gen) * 0.1
-A = -torch.rand(4, generator=gen) - 0.5
-B = torch.randn(4, 32, 8, generator=gen)
-C = torch.randn(4, 32, 8, generator=gen)
-pl = sharding.dim_placements
-args = [sharding.local_shard(a, mesh, p) for a, p in zip(
-    (x, dt, A, B, C), (pl(mesh, data=0, model=2), pl(mesh, data=0, model=2),
-                       pl(mesh, model=0), pl(mesh, data=0), pl(mesh, data=0)))]
-y, st = ops.ssd(*args, chunk=8)
-wy, wst = ops.ssd(x, dt, A, B, C, chunk=8)
-out["ssd_err"] = max(float((y.full_tensor() - wy).abs().max()),
-                     float((st.full_tensor() - wst).abs().max()))
+eighths = lambda t: torch.round(t * 8) / 8  # noqa: E731
+rep = lambda t: sharding.local_shard(  # noqa: E731
+    t, mesh, sharding.dim_placements(mesh))
+rows = lambda t: sharding.local_shard(  # noqa: E731
+    t, mesh, sharding.dim_placements(mesh, data=0))
+di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+mine = lambda t, hdim: t[2 * di:2 * di + 2].narrow(  # noqa: E731
+    hdim, mi * (t.shape[hdim] // 2), t.shape[hdim] // 2)
+pos = torch.arange(16)[None].expand(4, 16)
+for key, kv in (("fa", 2), ("fa_query_heads", 1)):
+    ap = {k: eighths(w) for k, w in attention.init_attention(
+        gen, 32, 4, kv, 16, torch.float32).items()}
+    x = eighths(torch.randn(4, 16, 32, generator=gen))
+    kw = dict(num_heads=4, num_kv_heads=kv, head_dim=16, rope_theta=1e4,
+              impl="kernel")
+    calls["fa"].clear()
+    want, _ = attention.attention_block(ap, x, positions=pos, **kw)
+    (_, full), = calls["fa"]
+    calls["fa"].clear()
+    got, _ = attention.attention_block(
+        {k: rep(w) for k, w in ap.items()}, rows(x), positions=rows(pos),
+        **kw)
+    (kind, local), = calls["fa"]
+    out[key + "_local"] = kind
+    out[key + "_err"] = float((local - mine(full, 2)).abs().max())
+    out[key + "_block_err"] = float((got.full_tensor() - want).abs().max())
+s = SSMConfig(state_dim=8, head_dim=16, expand=2, chunk_size=8)
+mp = {k: eighths(w) if k.startswith("w_") else w
+      for k, w in ssm.init_mamba2(gen, 32, s, torch.float32).items()}
+x = eighths(torch.randn(4, 32, 32, generator=gen))
+calls["ssd"].clear()
+wy, wst = ssm.mamba2_block(mp, x, 32, s, impl="kernel")
+(_, (fy, fst)), = calls["ssd"]
+calls["ssd"].clear()
+y, st = ssm.mamba2_block({k: rep(w) for k, w in mp.items()}, rows(x), 32, s,
+                         impl="kernel")
+(kind, (ly, lst)), = calls["ssd"]
+out["ssd_local"] = kind
+out["ssd_err"] = max(float((ly - mine(fy, 2)).abs().max()),
+                     float((lst - mine(fst, 1)).abs().max()))
+out["ssd_block_err"] = max(float((y.full_tensor() - wy).abs().max()),
+                           float((st.full_tensor() - wst).abs().max()))
 # the collective counter on hand-built collectives
 from torch.distributed.tensor import Partial, Replicate, Shard
 cc = CollectiveCounter()
@@ -439,12 +476,19 @@ def test_allgather_matmul_on_4_ranks(ref, gloo4):
     np.testing.assert_allclose(y, ref["ag_y"], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kernel", ["fa", "ssd"])
+@pytest.mark.parametrize("kernel", ["fa", "fa_query_heads", "ssd"])
 def test_kernels_under_a_mesh(gloo4, kernel):
-    """``ops.flash_attention`` and ``ops.ssd`` on DTensor operands of a
-    (2, 2) mesh reach the plain versions through ``local_map`` (batch over
-    "data", heads over "model") and equal the unsharded call."""
-    assert gloo4[kernel + "_err"] == 0.0
+    """``attention_block`` and the Mamba2 block with ``impl="kernel"`` on
+    DTensor activations of a (2, 2) mesh (batch over "data", heads over
+    "model": all heads where the KV heads divide, the query heads alone
+    where they do not) reach ``ops.flash_attention`` and ``ops.ssd`` once,
+    with plain local tensors inside the block's ``local_map``; each rank's
+    call returns exactly its slice of the unsharded call's result, and the
+    block's output is within 1e-5 of the unsharded block's (its last
+    projection sums over the ranks' heads in another order)."""
+    assert gloo4[kernel + "_local"] == "Tensor"
+    assert gloo4[kernel + "_err"] == 0.0, gloo4[kernel + "_err"]
+    assert gloo4[kernel + "_block_err"] < 1e-5, gloo4[kernel + "_block_err"]
 
 
 def test_hybrid_model_serves_on_a_mesh(gloo4):
@@ -489,11 +533,12 @@ def test_collective_parser():
 
 
 def test_dtensor_at_a_kernel_wrapper_raises(tmp_path):
-    """A DTensor reaching a kernel's wrapper raises: it never runs the
-    kernel (or its plain version) on a quietly replicated copy."""
+    """A DTensor reaching a kernel's wrapper, or the dispatch entry points
+    in front of them, raises: it never runs the kernel (or its plain
+    version) on a quietly replicated copy."""
     import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_rmsnorm, packed_gemm, ssd_scan
+    from repro_torch.kernels import fused_rmsnorm, ops, packed_gemm, ssd_scan
     from repro_torch.launch.mesh import make_mesh
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
@@ -509,7 +554,10 @@ def test_dtensor_at_a_kernel_wrapper_raises(tmp_path):
                      lambda: packed_gemm.packed_gemm(w, w),
                      lambda: fused_rmsnorm.packed_rmsnorm(w, w[:, 0]),
                      lambda: fused_rmsnorm.fused_rmsnorm_cuda(w, w[0, 0]),
-                     lambda: ssd_scan.ssd_scan_cuda(d, d, d, d, d)):
+                     lambda: ssd_scan.ssd_scan_cuda(d, d, d, d, d),
+                     lambda: ops.flash_attention(d, d, d),
+                     lambda: ops.ssd(d, d[..., 0], d[0, 0, :, 0], d[..., 0, :],
+                                     d[..., 0, :])):
             with pytest.raises(TypeError, match="DTensor"):
                 call()
     finally:
