@@ -6,12 +6,20 @@
 Phases, in order; any failure propagates and the exit code is non-zero:
 
 1. set-up: build every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), print each kernel's registers
-   and spills (``ptxas -v``), count the tensor-core (HGMMA),
+   (one ``nvcc`` per source, all at once), count the tensor-core (HGMMA),
    TMA (UTMALDG) and mbarrier (SYNCS) instructions in the SASS of the B1
    and B3 libraries and the tensor-core (HMMA), cp.async (LDGSTS) and
    ldmatrix (LDSM) instructions in B4's, print the card's name and power
-   limit, turn TF32 off;
+   limit, turn TF32 off; [analysis] the port's contract lint
+   (``repro_torch.analysis.lint --check``: 0 findings against the empty
+   ``LINT_BASELINE_TORCH.json``) and its kernel report
+   (``kernel_report --check --libs``): every instantiation in the built
+   libraries read by ``cuobjdump --dump-resource-usage``, one line each
+   (registers against the ceiling, spills from this run's ``ptxas`` log,
+   local memory, static shared memory against the model's), and each
+   kernel's shared memory per CTA at its budget's nominal dims, the
+   library's static size plus the dynamic size its launch function gives
+   (asked of the library), against the model's;
 2. [kernel] each kernel against its plain PyTorch version on the card:
    flash attention (B3) at the serving path's shape and at GQA / window /
    f32 / ragged / lane-masked cases, at head dims 16 (the reduced configs,
@@ -153,10 +161,17 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    beside the meta count's; then [dryrun]: four full-size production
    cells, each a ``python -m repro_torch.launch.dryrun`` child: every
    cell OK, argument bytes two ways equal, pod-axis bytes on the
-   multi-pod cell.
+   multi-pod cell;
+10. [examples] the four entry scripts ``examples/torch_*.py`` on the card
+   as child processes at the reference's CI sizes (quickstart and
+   serve_batch as they are, parametric_sweep ``--tasks 2 --steps 3``,
+   train_lm ``--steps 20`` with its checkpoint under ``build/``), each
+   exiting 0, their lines logged.
 
 The last three lines of standard output are the ``nvidia-smi`` name/power
-line, a JSON object with one record per kernel, and the result line
+line, a JSON object with one record per kernel (each with its bodies'
+registers, spill bytes and shared memory per CTA at the record's shape,
+read from the built libraries), and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or of ``repro``.
 """
 from __future__ import annotations
@@ -412,17 +427,16 @@ def device_ms(fn, iters: int = 10) -> float:
 # phase 1: set-up
 # ---------------------------------------------------------------------------
 
-def setup() -> str:
+def setup() -> tuple:
+    """Builds the kernels, checks their SASS, reads the card; returns the
+    card's ``nvidia-smi`` line and the ``ptxas`` logs of the libraries this
+    run compiled, by library."""
     import torch
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"[build] {sorted(logs) or 'cached'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for kernel, regs, spill_st, spill_ld in kernel_resources(text):
-            log(f"[build] {name}: {kernel}: {regs} registers, spill stores "
-                f"{spill_st} B, spill loads {spill_ld} B")
     check_sass()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -432,51 +446,7 @@ def setup() -> str:
     log(f"[card] {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return card
-
-
-def kernel_resources(ptxas_log: str) -> list:
-    """(kernel, registers, spill-store bytes, spill-load bytes) of each
-    entry function in an ``nvcc -Xptxas -v`` log, names demangled by the
-    toolkit's cu++filt where it has one."""
-    rows, name, spills = [], None, ("?", "?")
-    for line in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name, spills = m.group(1), ("?", "?")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills = m.groups()
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name is not None:
-            rows.append([name, int(m.group(1)), *spills])
-            name = None
-    filt = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
-                        "cu++filt")
-    if rows and os.path.exists(filt):
-        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
-                             capture_output=True, text=True, timeout=60)
-        names = out.stdout.splitlines()
-        if out.returncode == 0 and len(names) == len(rows):
-            for row, pretty in zip(rows, names):
-                row[0] = pretty.replace("(anonymous namespace)::", "")
-    return [tuple(r) for r in rows]
-
-
-def _cuobjdump() -> str:
-    """The toolkit's cuobjdump: on PATH, under CUDA_HOME, or the copy in
-    Triton's package."""
-    cands = [shutil.which("cuobjdump"), os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")]
-    for cand in cands:
-        if cand and os.path.exists(cand):
-            return cand
-    import triton
-    cand = Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump"
-    if cand.exists():
-        return str(cand)
-    raise AssertionError("cuobjdump not found: the SASS check needs it")
+    return card, logs
 
 
 # the libraries that run on the tensor cores, with the SASS instructions
@@ -496,8 +466,9 @@ def check_sass() -> None:
     """Counts the tensor-core and copy instructions of each library in
     ``TENSOR_CORE_LIBS`` in its compiled code; fails if a library lacks one
     it must hold."""
+    from repro_torch.analysis import kernel_report
     from repro_torch.kernels import _build
-    tool = _cuobjdump()
+    tool = kernel_report.cuobjdump()
     for name, (ops, needed) in TENSOR_CORE_LIBS.items():
         sass = subprocess.run(
             [tool, "-sass", str(_build.library_path(name))], check=True,
@@ -508,6 +479,138 @@ def check_sass() -> None:
         if missing:
             raise AssertionError(f"{name}: no {', '.join(missing)} in its "
                                  f"SASS")
+
+
+# the __global__ kernels behind each record of the kernels JSON line, by body
+RECORD_BODIES = {
+    "flash_attention_fwd": {"simt": "fa_fwd_simt_kernel",
+                            "wgmma": "fa_fwd_wgmma_kernel"},
+    "packed_gemm": {"simt": "gemm_simt_kernel",
+                    "wgmma": "gemm_wgmma_kernel"},
+    "packed_rmsnorm": {"row": "packed_rmsnorm_kernel"},
+    "fused_rmsnorm": {"row": "fused_rmsnorm_kernel"},
+    "ssd_scan": {"chunk": "ssd_chunk_kernel", "state": "ssd_state_kernel",
+                 "out": "ssd_out_kernel"},
+}
+
+
+def launch_smem(kernel: str, dims: dict) -> int:
+    """The dynamic shared memory, in bytes, that ``kernel``'s launch passes
+    at ``dims``, asked of its library: B3's at head dim ``dims["D"]``, B1's
+    by body, B4's from the plan of the call ``dims["ssd"]`` (b, S, nh, hd,
+    N, chunk, dtype). The RMSNorm kernels and ``ssd_state_kernel`` are
+    launched with none (``<<<..., 0, ...>>>`` in their sources)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import packed_gemm as pg
+    from repro_torch.kernels import ssd_scan
+    if kernel.startswith("fa_fwd_"):
+        return fa.launch_smem(kernel.split("_")[2], dims["D"])
+    if kernel.startswith("gemm_"):
+        return pg.launch_smem(kernel.split("_")[1])
+    if kernel in ("ssd_chunk_kernel", "ssd_out_kernel"):
+        plan = ssd_scan.plan(*dims["ssd"], torch.cuda.current_device())
+        return plan.smem[kernel.split("_")[1]]
+    return 0
+
+
+def nominal_dims(nominal: dict) -> dict:
+    """``launch_smem``'s dims for a budget's nominal bindings: the head dim,
+    and B4's plan call read from its ``make_plan(...)`` text (its last
+    argument is the dtype code, 1 for bf16)."""
+    import torch
+    dims = {"D": nominal.get("D")}
+    if "pl" in nominal:
+        *shape, code = (int(x) for x in re.findall(r"\d+", nominal["pl"]))
+        dims["ssd"] = (*shape, {0: torch.float32, 1: torch.bfloat16}[code])
+    return dims
+
+
+def analysis(logs: dict) -> list:
+    """[analysis]: the contract lint over the tree (0 findings against the
+    empty baseline), the static kernel report (every masked kernel gated
+    before its first load), every kernel instantiation of this run's
+    libraries within its budgets (``logs``: setup()'s ``ptxas`` logs), and
+    each kernel's shared memory per CTA at its budget's nominal dims read
+    from the library (static shared memory from ``cuobjdump``, without the
+    runtime's reserved 1 KB, plus the dynamic size its launch function
+    gives) against the model's. Returns the instantiation rows."""
+    from repro_torch.analysis import kernel_report as kr
+    from repro_torch.analysis.config import default_config
+    from repro_torch.analysis.driver import run_lint
+    from repro_torch.roofline.budgets import RESERVED_SMEM
+    t0 = time.perf_counter()
+    cfg = default_config(root=str(Path(__file__).resolve().parent))
+    lint = run_lint(cfg)
+    for f in lint.active:
+        log(f"[analysis] {f.render()}")
+    assert lint.ok and not lint.active, "the contract lint has findings"
+    log(f"[analysis] lint: clean, {len(lint.modules)} files, "
+        f"{len(lint.suppressed)} pragma-suppressed, baseline "
+        f"{Path(cfg.baseline_path).name} empty")
+    rep = kr.build_report(cfg)
+    problems = kr.check_static(rep, lint)
+    sources = {src.relpath: src for src in kr.load_sources(cfg)}
+    rows = kr.read_libraries(logs)
+    problems += kr.check_libraries(rows, list(sources.values()), cfg)
+    for line in kr.format_rows(rows):
+        log(f"[analysis] {line}")
+    for k in rep["kernels"]:
+        mine = [r for r in rows if r["kernel"] == k["kernel"]]
+        log(f"[analysis] {k['path'].rsplit('/', 1)[-1]}:{k['line']} "
+            f"{k['kernel']}: {len(mine)} instantiation(s), lane predicate "
+            f"{k['lane_predicate']}, gated before its first load "
+            f"{k['gated_before_load']}, grids "
+            f"{[ln['grid_rank'] for ln in k['launches']]} for axes "
+            f"{''.join(k['block_axes'])}")
+        if not mine:
+            continue
+        nominal = cfg.kernel_budgets[f"{k['path']}::{k['kernel']}"]["nominal"]
+        reserved = RESERVED_SMEM if sources[k["path"]].uses_shared() else 0
+        static = max(r["shared"] for r in mine) - reserved
+        dynamic = launch_smem(k["kernel"], nominal_dims(nominal))
+        log(f"[analysis] {k['kernel']}: shared memory per CTA at nominal "
+            f"dims {nominal}: the library's {static} B static + {dynamic} B "
+            f"its launch passes = {static + dynamic} B; modelled "
+            f"{k['smem_bytes']} B (budget {k['smem_budget']} B)")
+        if static + dynamic != k["smem_bytes"]:
+            problems.append(f"{k['kernel']}: the library's shared memory "
+                            f"{static + dynamic} B at nominal dims, the "
+                            f"model's {k['smem_bytes']} B")
+    for p in problems:
+        log(f"[analysis] problem: {p}")
+    assert not problems, f"{len(problems)} kernel-report problem(s)"
+    log(f"[analysis] kernel report: {rep['n_kernels']} kernels, "
+        f"{len(rows)} instantiations within budgets, "
+        f"{sum(1 for r in rows if r['spill_stores'] is not None)} with spills "
+        f"read from this run's ptxas log, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def attach_resources(records: list, rows: list) -> None:
+    """Each record of the kernels JSON line gains, by body, what this run
+    read of its kernel in the built libraries ([analysis]'s ``rows``):
+    ``registers``, the most of any instantiation; ``spill_bytes``, their sum
+    in this run's ``ptxas`` log (None on a cached build); and ``smem_bytes``
+    per CTA at the record's shape: the library's static shared memory (the
+    runtime's reserved 1 KB included) plus the dynamic size the launch
+    passes there, asked of the library (B4's from the record's plan)."""
+    for rec in records:
+        for key in ("registers", "spill_bytes", "smem_bytes"):
+            rec[key] = {}
+        for body, kernel in RECORD_BODIES[rec["name"]].items():
+            mine = [r for r in rows if r["kernel"] == kernel]
+            spills = [r["spill_stores"] + r["spill_loads"] for r in mine
+                      if r["spill_stores"] is not None]
+            if rec["name"] == "ssd_scan":
+                dynamic = rec["plan"]["smem"].get(body, 0)
+            else:
+                dynamic = launch_smem(kernel, {"D": rec.get("shape", [0])[-1]})
+            rec["registers"][body] = max(r["registers"] for r in mine)
+            rec["spill_bytes"][body] = (sum(spills) if len(spills) == len(mine)
+                                        else None)
+            rec["smem_bytes"][body] = max(r["shared"] for r in mine) + dynamic
 
 
 # ---------------------------------------------------------------------------
@@ -655,6 +758,7 @@ def check_flash_attention() -> dict:
     # timing at the serving path's prefill shape
     name, B, Sq, Sk, Hq, Hkv, D, dt, causal, window = cases[0]
     q, k, v = _qkv(gen, B, Sq, Sk, Hq, Hkv, D, dt)
+    shape = list(q.shape)
     ms = cuda_time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     dev_ms = device_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     plain_ms = cuda_time_ms(
@@ -703,7 +807,8 @@ def check_flash_attention() -> dict:
             "launches": None, "max_abs_err": errs["prefill"], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "library_device_ms": library_dev_ms, "shapes": shapes}
+            "library_device_ms": library_dev_ms, "shape": shape,
+            "shapes": shapes}
 
 
 def check_attention_vmap_grad(gen) -> None:
@@ -4506,6 +4611,44 @@ def dist_phases(record: dict) -> None:
                 p.communicate()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the entry scripts
+# ---------------------------------------------------------------------------
+
+EXAMPLE_CKPT = Path(__file__).resolve().parent / "build" / "examples" / \
+    "train_lm_ckpt"
+EXAMPLES = (("quickstart", []),
+            ("parametric_sweep", ["--tasks", "2", "--steps", "3"]),
+            ("serve_batch", []),
+            ("train_lm", ["--steps", "20", "--ckpt", str(EXAMPLE_CKPT)]))
+
+
+def examples() -> None:
+    """[examples]: the four ``examples/torch_*.py`` scripts on the card as
+    child processes, started together; each must exit 0."""
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    kids = [start_child(name, [f"examples/torch_{name}.py", *args])
+            for name, args in EXAMPLES]
+    failed = []
+    try:
+        done = finish_children(kids, timeout=600)
+    finally:
+        for _, p, _ in kids:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, _ in EXAMPLES:
+        rc, text, secs = done[name]
+        for line in text.splitlines():
+            if line.strip():
+                log(f"[examples] {name}: {line}")
+        log(f"[examples] {name}: exit {rc}, done within {secs:.1f} s of the "
+            f"phase's start")
+        if rc != 0:
+            failed.append(name)
+    assert not failed, f"examples failed: {failed}"
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -4533,9 +4676,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
-    card = setup()
+    card, logs = setup()
+    t_setup = time.perf_counter()
+    resources = analysis(logs)
+    t_analysis = time.perf_counter()
     records = [check_flash_attention(), check_packed_gemm(), *check_rmsnorm(),
                check_ssd_scan()]
+    attach_resources(records, resources)
     check_mamba2_gradient()
     check_small_reference()
     check_small_families()
@@ -4563,11 +4710,16 @@ def main() -> int:
     t8 = time.perf_counter()
     dist_phases(records[0])
     t9 = time.perf_counter()
-    log(f"[done] {t9 - t0:.1f} s; [serve-vlm] and [serve-encdec] "
+    examples()
+    t10 = time.perf_counter()
+    log(f"[done] {t10 - t0:.1f} s; set-up {t_setup - t0:.1f} s, "
+        f"[analysis] {t_analysis - t_setup:.1f} s, [serve-vlm] and "
+        f"[serve-encdec] "
         f"{t2 - t1:.1f} s, training phases {t3 - t2:.1f} s, [train-resnet] "
         f"{t4 - t3:.1f} s, [train-moe] {t5 - t4:.1f} s, [train-hybrid] "
         f"{t6 - t5:.1f} s, [roofline] {t7 - t6:.1f} s, policy phases "
-        f"{t8 - t7:.1f} s, distributed phases {t9 - t8:.1f} s")
+        f"{t8 - t7:.1f} s, distributed phases {t9 - t8:.1f} s, [examples] "
+        f"{t10 - t9:.1f} s")
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

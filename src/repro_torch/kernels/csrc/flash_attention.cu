@@ -252,16 +252,36 @@ __global__ void __launch_bounds__(THREADS) fa_fwd_simt_kernel(Params p) {
   }
 }
 
+// Launch the f32 body, or with `smem_out` only write the dynamic shared
+// memory the launch passes and launch nothing.
 template <int D>
-cudaError_t launch_simt(const Params& p, cudaStream_t stream) {
+cudaError_t launch_simt(const Params& p, cudaStream_t stream, int* smem_out) {
   constexpr int LD = D + 1;
   const int smem = (BQ * LD + 2 * BK * LD + BQ * LDP) * (int)sizeof(float);
+  if (smem_out != nullptr) {
+    *smem_out = smem;
+    return cudaSuccess;
+  }
   cudaError_t err =
       repro::allow_dynamic_smem<fa_fwd_simt_kernel<float, D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
   fa_fwd_simt_kernel<float, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+int simt_dispatch(const Params& p, int D, cudaStream_t s, int* smem_out) {
+  switch (D) {
+    case 16: return launch_simt<16>(p, s, smem_out);
+    case 32: return launch_simt<32>(p, s, smem_out);
+    case 48: return launch_simt<48>(p, s, smem_out);
+    case 64: return launch_simt<64>(p, s, smem_out);
+    case 80: return launch_simt<80>(p, s, smem_out);
+    case 96: return launch_simt<96>(p, s, smem_out);
+    case 112: return launch_simt<112>(p, s, smem_out);
+    case 128: return launch_simt<128>(p, s, smem_out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -518,15 +538,30 @@ inline int map_qkv(CUtensorMap* map, const void* ptr, int D, int H, int S,
   return encode_bf16(map, ptr, 4, dims, strides, box);
 }
 
+// Launch the bf16 body, or with `smem_out` only write the dynamic shared
+// memory the launch passes and launch nothing.
 template <int D>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk,
-           const CUtensorMap& mv, const Params& p, cudaStream_t stream) {
+           const CUtensorMap& mv, const Params& p, cudaStream_t stream,
+           int* smem_out) {
   constexpr int smem = Smem<D>::BYTES;
+  if (smem_out != nullptr) {
+    *smem_out = smem;
+    return cudaSuccess;
+  }
   cudaError_t err = repro::allow_dynamic_smem<fa_fwd_wgmma_kernel<D>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
   fa_fwd_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
+}
+
+// p.D up to 64 runs the 64-column instantiation, the rest the 128-column one
+int dispatch(const CUtensorMap& mq, const CUtensorMap& mk,
+             const CUtensorMap& mv, const Params& p, cudaStream_t s,
+             int* smem_out) {
+  if (p.D <= 64) return launch<64>(mq, mk, mv, p, s, smem_out);
+  return launch<128>(mq, mk, mv, p, s, smem_out);
 }
 
 }  // namespace wg
@@ -561,18 +596,7 @@ extern "C" int repro_flash_attention_fwd(
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_simt<16>(p, s);
-    case 32: return launch_simt<32>(p, s);
-    case 48: return launch_simt<48>(p, s);
-    case 64: return launch_simt<64>(p, s);
-    case 80: return launch_simt<80>(p, s);
-    case 96: return launch_simt<96>(p, s);
-    case 112: return launch_simt<112>(p, s);
-    case 128: return launch_simt<128>(p, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return simt_dispatch(p, D, static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // bf16 body. q/k/v strides are in elements, multiples of 8, bases 16-byte
@@ -609,7 +633,20 @@ extern "C" int repro_flash_attention_fwd_wgmma(
   p.causal = causal;
   p.window = window;
   p.scale_log2 = scale_log2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 64) return wg::launch<64>(mq, mk, mv, p, s);
-  return wg::launch<128>(mq, mk, mv, p, s);
+  return wg::dispatch(mq, mk, mv, p, static_cast<cudaStream_t>(stream),
+                      nullptr);
+}
+
+// The dynamic shared memory, in bytes, that a launch at head dim D passes
+// (body 0: the f32 body, 1: the bf16 body), written to *smem through the
+// launch functions themselves, which launch nothing here. Returns 0, or
+// cudaErrorInvalidValue for a head dim the body does not take.
+extern "C" int repro_flash_attention_smem(int body, int D, int* smem) {
+  if (body == 0) return simt_dispatch(Params{}, D, nullptr, smem);
+  if (D < 16 || D > 128 || D % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wg::Params p{};
+  p.D = D;
+  const CUtensorMap none{};
+  return wg::dispatch(none, none, none, p, nullptr, smem);
 }

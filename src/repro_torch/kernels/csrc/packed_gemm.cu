@@ -340,6 +340,20 @@ __global__ void __launch_bounds__(C::THREADS) gemm_simt_kernel(Params p) {
   }
 }
 
+// Launch the f32 body, or with `smem_out` only write the dynamic shared
+// memory the launch passes and launch nothing: none, the tiles are static.
+int launch(const Params& p, cudaStream_t stream, int* smem_out) {
+  using C = Chosen;
+  constexpr int smem = 0;
+  if (smem_out != nullptr) {
+    *smem_out = smem;
+    return cudaSuccess;
+  }
+  const dim3 grid((p.N + C::BN - 1) / C::BN, (p.M + C::BM - 1) / C::BM, p.J);
+  gemm_simt_kernel<C><<<grid, C::THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace simt
 // ---------------------------------------------------------------------------
 // wgmma body (bf16)
@@ -478,9 +492,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// Launch the bf16 body, or with `smem_out` only write the dynamic shared
+// memory the launch passes and launch nothing.
 template <int TA>
 int launch(const CUtensorMap& mx, const CUtensorMap& mw, const Params& p,
-           cudaStream_t stream) {
+           cudaStream_t stream, int* smem_out) {
+  if (smem_out != nullptr) {
+    *smem_out = SMEM;
+    return cudaSuccess;
+  }
   cudaError_t err = repro::allow_dynamic_smem<gemm_wgmma_kernel<TA>>(SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, p.J);
@@ -500,7 +520,6 @@ extern "C" int repro_packed_gemm(
     int J, int M, int N, int K,
     long long x_sj, long long x_sm, long long x_sk,
     long long w_sj, long long w_sk, long long w_sn, void* stream) {
-  using C = simt::Chosen;
   simt::Params p;
   p.x = static_cast<const float*>(x);
   p.w = static_cast<const float*>(w);
@@ -514,10 +533,7 @@ extern "C" int repro_packed_gemm(
   p.w_sj = w_sj; p.w_sk = w_sk; p.w_sn = w_sn;
   p.x_mode = simt::operand_mode(p.x, J, M, K, x_sj, x_sm, x_sk);
   p.w_mode = simt::operand_mode(p.w, J, N, K, w_sj, w_sn, w_sk);
-  const dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM, J);
-  simt::gemm_simt_kernel<C><<<grid, C::THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  return simt::launch(p, static_cast<cudaStream_t>(stream), nullptr);
 }
 // bf16 body. x is K-major (x_m_major = 0: x_sk == 1, x_inner = its K
 // extent, which a padded copy may round up) or M-major (x_m_major = 1:
@@ -561,6 +577,16 @@ extern "C" int repro_packed_gemm_wgmma(
   p.N = N;
   p.K = K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_m_major ? wg::launch<1>(mx, mw, p, s) : wg::launch<0>(mx, mw, p, s);
+  return x_m_major ? wg::launch<1>(mx, mw, p, s, nullptr)
+                   : wg::launch<0>(mx, mw, p, s, nullptr);
+}
+
+// The dynamic shared memory, in bytes, that a launch passes (body 0: the f32
+// body, 1: the bf16 body), written to *smem through the launch functions
+// themselves, which launch nothing here. Returns 0.
+extern "C" int repro_packed_gemm_smem(int body, int* smem) {
+  if (body == 0) return simt::launch(simt::Params{}, nullptr, smem);
+  const CUtensorMap none{};
+  return wg::launch<0>(none, none, wg::Params{}, nullptr, smem);
 }
 

@@ -87,6 +87,23 @@ def _bind(body: str):
                         + [i, i, ctypes.c_float, p])
 
 
+def launch_smem(body: str, head_dim: int) -> int:
+    """The dynamic shared memory, in bytes, that ``body``'s launch at
+    ``head_dim`` passes, asked of the library's own launch function
+    (``repro_flash_attention_smem``), which launches nothing for it."""
+    attention_body(torch.float32 if body == "simt" else torch.bfloat16,
+                   head_dim)
+    smem = ctypes.c_int(0)
+    fn = _build.entry("flash_attention", "repro_flash_attention_smem",
+                      [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)])
+    err = fn(int(body == "wgmma"), head_dim, ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"flash_attention: the library's size query "
+                           f"failed (CUDA error {err})")
+    return smem.value
+
+
 def _tma_strides(t) -> tuple:
     """(b, s, h) element strides of ``t`` for a tensor map, or raise: a
     layout TMA cannot describe (``tma.describable``) has no body to take

@@ -96,6 +96,22 @@ def _bind(body: str):
                         [p] * 4 + [i] * 4 + [ll, ll, i, ll] + [ll] * 3 + [p])
 
 
+def launch_smem(body: str) -> int:
+    """The dynamic shared memory, in bytes, that ``body``'s launch passes,
+    asked of the library's own launch function (``repro_packed_gemm_smem``),
+    which launches nothing for it."""
+    if body not in ("simt", "wgmma"):
+        raise ValueError(f"packed_gemm: no body {body!r}")
+    smem = ctypes.c_int(0)
+    fn = _build.entry("packed_gemm", "repro_packed_gemm_smem",
+                      [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    err = fn(int(body == "wgmma"), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"packed_gemm: the library's size query failed "
+                           f"(CUDA error {err})")
+    return smem.value
+
+
 def _check(x, w):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("packed_gemm_cuda has no backward: call it under "

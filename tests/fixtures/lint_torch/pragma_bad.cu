@@ -1,0 +1,13 @@
+// Fixture: malformed and unused `//` pragmas (LNT001 / LNT002).
+#include <cuda_runtime.h>
+
+__global__ void hist_kernel(const int* x, int* bins, int n) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i < n) atomicAdd(&bins[x[i] & 255], 1);  // lint: disable=CUD405()
+  const int unused = 0;  // lint: disable=CUD405(nothing to suppress on this line)
+  (void)unused;
+}
+
+void launch(const int* x, int* bins, int n, cudaStream_t s) {
+  hist_kernel<<<(n + 255) / 256, 256, 0, s>>>(x, bins, n);
+}

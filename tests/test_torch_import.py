@@ -13,8 +13,10 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 PORT_FILES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
-CHECKED_FILES = PORT_FILES + ["chip_smoke.py", "chip_prefill_wall.py",
-                              "chip_pool_peak.py"]
+EXAMPLE_FILES = sorted(p.relative_to(ROOT).as_posix()
+                       for p in (ROOT / "examples").glob("torch_*.py"))
+CHECKED_FILES = PORT_FILES + EXAMPLE_FILES + [
+    "chip_smoke.py", "chip_prefill_wall.py", "chip_pool_peak.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -120,6 +122,35 @@ def test_distributed_slice_modules_load_no_jax(module):
     """Each module of the distributed slice, imported alone (the source
     checks below take in every file of the port, these too)."""
     _alone_loads_no_jax(module)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.analysis", "repro_torch.analysis.core",
+    "repro_torch.analysis.cuda_model", "repro_torch.analysis.rules_cuda",
+    "repro_torch.analysis.kernel_report", "repro_torch.analysis.lint",
+    "repro_torch.roofline.budgets"])
+def test_analysis_slice_modules_load_no_jax(module):
+    """Each module of the contract-analysis slice, imported alone."""
+    _alone_loads_no_jax(module)
+
+
+def test_examples_load_no_jax():
+    """The four entry scripts, each imported from its file in a fresh
+    interpreter, load no JAX and nothing of ``repro``."""
+    assert len(EXAMPLE_FILES) == 4
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for path in {EXAMPLE_FILES!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps({'bad': bad}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(res.stdout.strip().splitlines()[-1])["bad"] == []
 
 
 def test_encdec_vlm_resnet_paths_load_no_jax():

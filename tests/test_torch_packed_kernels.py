@@ -518,8 +518,9 @@ def test_row_vectors_are_instantiated():
 
 def test_kernel_resources_reads_ptxas_output():
     """chip_smoke's [build] lines: registers and spills per entry function
-    of an ``nvcc -Xptxas -v`` log."""
-    from chip_smoke import kernel_resources
+    of an ``nvcc -Xptxas -v`` log (read by the kernel report, whose spill
+    counts are integers)."""
+    from repro_torch.analysis.kernel_report import kernel_resources
     log = (
         "ptxas info    : 0 bytes gmem\n"
         "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
@@ -531,5 +532,5 @@ def test_kernel_resources_reads_ptxas_output():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 36 registers, used 0 barriers\n")
     rows = kernel_resources(log)
-    assert [r[1:] for r in rows] == [(151, "8", "4"), (36, "0", "0")]
+    assert [r[1:] for r in rows] == [(151, 8, 4), (36, 0, 0)]
     assert rows[0][0] in ("_Z1av", "a()")
