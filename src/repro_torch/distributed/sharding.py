@@ -346,23 +346,111 @@ def model_dim(mesh, size: int, dim: int):
 
 
 class _Constrain(torch.autograd.Function):
-    """Redistribute to ``placements`` in the forward AND the backward, as
-    the reference's sharding constraint binds the cotangent too."""
+    """Redistribute to ``placements`` in the forward and the gradient to
+    ``grad_placements`` in the backward, as the reference's sharding
+    constraint binds the cotangent too. A shard cut from a whole owns its
+    storage (``_owned``)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, placements):
-        ctx.mesh, ctx.placements = mesh, placements
-        return x.redistribute(mesh, placements)
+    def forward(ctx, x, mesh, placements, grad_placements):
+        ctx.mesh, ctx.grad_placements = mesh, grad_placements
+        return _owned(x.redistribute(mesh, placements), x)
 
     @staticmethod
     def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.placements), None, None
+        return (_owned(g.redistribute(ctx.mesh, ctx.grad_placements), g),
+                None, None, None)
 
 
-def constrain(x, mesh, placements):
+def _owned(out, src):
+    """``out``, redistributed from ``src`` (DTensors), with a local tensor
+    that owns its storage where ``redistribute`` cut it as a view of a
+    larger one (a shard of a gathered or replicated whole), which would
+    keep the whole alive as long as the shard. A local tensor that is
+    ``src``'s own (nothing was moved) stays as it is, a view or not."""
+    local, before = out.to_local(), src.to_local()
+    storage = local.untyped_storage()
+    same = (storage._cdata == before.untyped_storage()._cdata
+            and local.storage_offset() == before.storage_offset()
+            and local.shape == before.shape
+            and local.stride() == before.stride())
+    if same or storage.nbytes() <= local.numel() * local.element_size():
+        return out
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local.clone(), out.device_mesh, out.placements,
+                              run_check=False, shape=out.shape,
+                              stride=out.stride())
+
+
+def constrain(x, mesh, placements, grad_placements=None):
     """``x`` (a DTensor) redistributed to ``placements``, and its gradient
-    too: a gradient that comes back as partial sums is summed here (where
-    DTensor would otherwise carry it on into the next product and gather
-    that product's weight to keep it partial), and one sharded where a
-    view cannot split it is gathered."""
-    return _Constrain.apply(x, mesh, list(placements))
+    to ``grad_placements`` (by default ``placements`` too): a gradient
+    that comes back as partial sums is summed here (where DTensor would
+    otherwise carry it on into the next product and gather that product's
+    weight to keep it partial), and one sharded where a view cannot split
+    it is gathered."""
+    placements = list(placements)
+    return _Constrain.apply(x, mesh, placements, placements
+                            if grad_placements is None
+                            else list(grad_placements))
+
+
+def fsdp_gather(w, keep_model: bool = True):
+    """A parameter ``w`` (a DTensor) at its point of use: gathered over
+    the data axes (its FSDP shards) for the product that takes it, and
+    over "model" too unless ``keep_model`` (a norm's weight, which scales
+    every feature of a replicated activation: a stack of at least 8
+    layers shards its (L, d) leaf over "model" by the fallback rule). The
+    gradient goes back to ``w``'s own placements right there (a
+    reduce-scatter over the data axes), so a layer's weight gradients are
+    reduced in its backward whatever strategy DTensor would pick for the
+    product, as GSPMD does inside the reference's scan. Where nothing is
+    to be gathered (every such axis of size 1, or ``w`` whole on it
+    already), ``w`` itself."""
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    sizes = axis_sizes(mesh)
+    need = [p if a == "model" and keep_model else Replicate()
+            for a, p in zip(sizes, w.placements)]
+    if all(n == p or sizes[a] == 1
+           for a, n, p in zip(sizes, need, w.placements)):
+        return w
+    return constrain(w, mesh, need, w.placements)
+
+
+def split_contraction(x, w):
+    """``x @ w`` (DTensors, ``w`` a matrix at its use) split over "model"
+    along the contraction where the placements leave that to DTensor,
+    which may compute a product or its weight's gradient whole on every
+    "model" rank:
+
+    * "model" splits w's contraction dim and not x: x is taken split
+      likewise (the forward DTensor runs), so that the weight's gradient
+      is computed on the split too;
+    * "model" splits neither of w's dims (its output dim does not divide,
+      as Mamba2-130m's in-projection's) and divides the contraction: x
+      and w are both taken split and the partial products summed, as
+      GSPMD splits the reference's.
+
+    The gradients keep the split: x's is split along its last dim, w's
+    gathered back to its placements. Any other placements: ``x @ w``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    sizes = axis_sizes(mesh)
+    m = list(sizes).index("model")
+    if sizes["model"] == 1 or x.placements[m] != Replicate():
+        return x @ w
+
+    def on_model(placements, p):
+        out = list(placements)
+        out[m] = p
+        return out
+
+    xs = on_model(x.placements, Shard(x.ndim - 1))
+    if w.placements[m] == Shard(0):
+        return constrain(x, mesh, xs) @ w
+    if w.placements[m] == Replicate() and w.shape[0] % sizes["model"] == 0:
+        out = constrain(x, mesh, xs) @ constrain(
+            w, mesh, on_model(w.placements, Shard(0)), w.placements)
+        return constrain(out, mesh, on_model(out.placements, Replicate()))
+    return x @ w

@@ -5,7 +5,8 @@ plain PyTorch version, a CUDA tensor launches the hand-written kernel or
 raises. ``flash_attention`` is a ``torch.autograd.Function`` whose backward
 recomputes through ``models.attention.sdpa_chunked``, as the reference's
 custom_vjp does (there is no backward kernel in either package; the port's
-has a first derivative only); it runs
+has a first derivative only), one slice of query rows at a time, so that
+its peak holds one slice's scores and not the layer's; it runs
 under ``torch.func.grad`` and ``torch.func.vmap``, and a vmapped call makes
 one kernel launch with the vmapped axis folded into the batch axis. ``ssd``
 has no backward in either package.
@@ -63,14 +64,28 @@ class _FlashAttention(torch.autograd.Function):
         # torch.func.grad would keep alive to the end of the backward)
         q, k, v = (t.detach() for t in ctx.saved_tensors[:3])
         active = ctx.saved_tensors[3]
+        g = g.detach()
+        # k and v enter in f32 (``sdpa_chunked`` computes in f32 either
+        # way), so their gradients are summed over the slices in f32
+        kf, vf = k.float(), v.float()
+        rows = backward_rows(q.shape[0], q.shape[1], q.shape[2],
+                             min(k.shape[1], 1024))
+        dq, dk, dv = [], 0, 0
+        for lo in range(0, q.shape[1], rows):
+            def attend(qs, kf, vf, lo=lo):
+                out = sdpa_chunked(qs, kf, vf, causal=ctx.causal,
+                                   window=ctx.window, q_offset=lo)
+                return out if active is None else ref.mask_lanes(active, out)
 
-        def attend(q, k, v):
-            out = sdpa_chunked(q, k, v, causal=ctx.causal, window=ctx.window)
-            return out if active is None else ref.mask_lanes(active, out)
-
-        # torch.func.vjp composes with the transforms the forward ran under
-        _, vjp = torch.func.vjp(attend, q, k, v)
-        return (*vjp(g.detach()), None, None, None)
+            # torch.func.vjp composes with the transforms the forward ran
+            # under
+            _, vjp = torch.func.vjp(attend, q[:, lo:lo + rows], kf, vf)
+            dqs, dks, dvs = vjp(g[:, lo:lo + rows])
+            del vjp         # this slice's scores go before the next's come
+            dq.append(dqs)
+            dk, dv = dk + dks, dv + dvs
+        dq = dq[0] if len(dq) == 1 else torch.cat(dq, dim=1)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, active, causal, window):
@@ -90,6 +105,23 @@ class _FlashAttention(torch.autograd.Function):
         out = _FlashAttention.apply(fold(q, q_dim), fold(k, k_dim),
                                     fold(v, v_dim), active, causal, window)
         return out.reshape(n, -1, *out.shape[1:]), 0
+
+
+# the f32 score block (B, Hq, rows, key chunk) one query slice of B3's
+# backward holds at a time; about a dozen are alive at its peak
+BACKWARD_BLOCK_BYTES = 1 << 30
+
+
+def backward_rows(batch: int, seq: int, heads: int, chunk_k: int) -> int:
+    """Query rows per slice of ``_FlashAttention.backward``: the largest
+    power of two whose f32 score block (batch, heads, rows, chunk_k) fits
+    in ``BACKWARD_BLOCK_BYTES`` (at least 1), or all ``seq`` rows when
+    they fit. 512 rows at qwen2-vl-7b's train_4k layer (16 sequences, 28
+    heads on every rank: 0.94 GB a block)."""
+    per_row = batch * heads * chunk_k * 4
+    rows = 1 << max(0, (BACKWARD_BLOCK_BYTES // max(per_row, 1)).bit_length()
+                    - 1)
+    return seq if rows >= seq else rows
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,

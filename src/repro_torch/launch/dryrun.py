@@ -191,13 +191,19 @@ def fake_world(size: int):
 def count_cell(arch: str, shape_name, mesh, *, fsdp: bool = True,
                overrides: Optional[dict] = None, opt: Optional[dict] = None):
     """Build the cell on ``mesh`` and count its step on meta tensors:
-    (StepCounts, n_tokens, kind, model, arg specs)."""
+    (StepCounts, n_tokens, kind, model, arg specs). The specs of the
+    arguments the step never reads (``StepCounts.unread_args``: a vlm's
+    prefill, fed embeddings, and its embedding table) are None, as the
+    reference's ``jax.jit`` leaves such an argument out."""
     from repro_torch.roofline import counting
     step, specs, n_tokens, kind, model = lower_cell(
         arch, shape_name, mesh, fsdp=fsdp, overrides=overrides, opt=opt)
     args = materialize(specs, mesh)
     with torch.no_grad() if kind == "inference" else contextlib.nullcontext():
         c = counting.count_step(step, *args)
+    position = iter(range(len(counting._tensors(args))))
+    specs = _map_specs(lambda s: None if next(position) in c.unread_args
+                       else s, specs)
     return c, n_tokens, kind, model, specs
 
 

@@ -129,9 +129,8 @@ def sdpa_decode(q, k_cache, v_cache, valid):
 def project_kv(params: dict, ctx, num_kv_heads: int, head_dim: int) -> tuple:
     """K/V projections of an encoder memory (no rope). ctx (B, Sk, d)."""
     B, Sk, _ = ctx.shape
-    cdt = ctx.dtype
-    k = _heads(ctx @ params["w_k"].to(cdt), num_kv_heads, head_dim)
-    v = _heads(ctx @ params["w_v"].to(cdt), num_kv_heads, head_dim)
+    k = _heads(layers.dense(ctx, params["w_k"]), num_kv_heads, head_dim)
+    v = _heads(layers.dense(ctx, params["w_v"]), num_kv_heads, head_dim)
     return k, v
 
 
@@ -186,8 +185,7 @@ def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
     operands) it runs under ``local_map``, batch over the data axes and
     heads over "model" where they divide."""
     B, S, _ = x.shape
-    cdt = x.dtype
-    q = x @ params["w_q"].to(cdt)
+    q = layers.dense(x, params["w_q"])
     if is_dtensor(q):
         mesh = q.device_mesh
         qd, kd = mesh_head_dims(mesh, num_heads, k.shape[2])
@@ -198,7 +196,7 @@ def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
     else:
         q = q.reshape(B, S, num_heads, head_dim)
         out = sdpa_chunked(q, k, v, causal=False, window=0)
-    return _merge_heads(out) @ params["w_o"].to(cdt)
+    return layers.dense(_merge_heads(out), params["w_o"])
 
 
 def _kv_slice(k, v, kv_heads):
@@ -265,13 +263,12 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
     """
     impl = impl or default_impl(x.device)
     B, S, _ = x.shape
-    cdt = x.dtype
     if kv_ctx is not None:
         k, v = project_kv(params, kv_ctx, num_kv_heads, head_dim)
         return attn_with_kv(params, x, k, v, num_heads, head_dim), None
-    q = x @ params["w_q"].to(cdt)
-    k = x @ params["w_k"].to(cdt)
-    v = x @ params["w_v"].to(cdt)
+    q = layers.dense(x, params["w_q"])
+    k = layers.dense(x, params["w_k"])
+    v = layers.dense(x, params["w_v"])
     kw = dict(rope_theta=rope_theta, causal=causal, window=window,
               impl=impl, prob_dtype=prob_dtype)
     leaves = (None,) * 4 if kv_cache is None else tuple(
@@ -297,7 +294,7 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
         k = k.reshape(B, S, num_kv_heads, head_dim)
         v = v.reshape(B, S, num_kv_heads, head_dim)
         out = _attend(q, k, v, positions, mrope_positions, *leaves, **kw)
-    return _merge_heads(out) @ params["w_o"].to(cdt), kv_cache
+    return layers.dense(_merge_heads(out), params["w_o"]), kv_cache
 
 
 def _merge_heads(out):

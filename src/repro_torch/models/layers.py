@@ -36,7 +36,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    return (out * _whole(weight).float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -46,7 +46,17 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     out = (x32 - mu) * torch.rsqrt(var + eps)
-    return (out * weight.float() + bias.float()).to(x.dtype)
+    return (out * _whole(weight).float() + _whole(bias).float()).to(x.dtype)
+
+
+def _whole(w: torch.Tensor) -> torch.Tensor:
+    """A norm's weight or bias, under a mesh gathered whole on every rank
+    at its use (``sharding.fsdp_gather``), so that the activation it
+    scales keeps its placements."""
+    if is_dtensor(w):
+        from repro_torch.distributed.sharding import fsdp_gather
+        return fsdp_gather(w, keep_model=False)
+    return w
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -99,6 +109,66 @@ def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _SiLU(torch.autograd.Function):
+    """SiLU with one backward on every route: g·σ(x)·(1 + x·(1 − σ(x)))
+    computed in f32 from torch ops in that order and rounded once to x's
+    dtype, as autograd's ``silu_backward`` kernel does. ``torch.func``
+    otherwise differentiates ``F.silu`` through ops of x's dtype, which in
+    bf16 round at each step, so a lane pool's gradients and a mesh
+    step's differed in their last bits. In f32 the result is the one
+    ``torch.func`` gave; and since it is made of torch ops, a step counts
+    the same ops on ``meta`` as on a device (``silu_backward`` has no
+    ``meta`` kernel: it decomposes there)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return F.silu(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        x = ctx.saved_tensors[0]
+        xf = x.float()
+        s = torch.sigmoid(xf)
+        return (g.float() * s * (1 + xf * (1 - s))).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``F.silu`` with one backward on the ``torch.func`` and the
+    ``torch.autograd`` routes (``_SiLU``)."""
+    return _SiLU.apply(x)
+
+
+def at_use(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight at its point of use, cast to the compute ``dtype``. Under
+    a mesh a weight that takes a gradient is gathered over the data axes
+    first (``sharding.fsdp_gather``), so that its gradient is reduced to
+    its shards in the layer's backward; a cast commutes with a gather, so
+    the values are the same. One that takes none (serving) is left to
+    DTensor's placement, which moves a step's activation rows and not
+    the weights."""
+    if is_dtensor(w) and w.requires_grad:
+        from repro_torch.distributed.sharding import fsdp_gather
+        w = fsdp_gather(w)
+    return w.to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in x's dtype, ``w`` taken at its use (``at_use``). Under a
+    mesh the product is split over "model" along its contraction where
+    the weight's placements leave that to DTensor
+    (``sharding.split_contraction``)."""
+    w = at_use(w, x.dtype)
+    if is_dtensor(w):
+        from repro_torch.distributed.sharding import split_contraction
+        return split_contraction(x, w)
+    return x @ w
+
+
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
              dtype: torch.dtype) -> dict:
     if mlp_type == "swiglu":
@@ -114,15 +184,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, mlp_type: str,
 
 
 def mlp(params: dict, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    cdt = x.dtype
     if mlp_type == "swiglu":
-        g = x @ params["w_gate"].to(cdt)
-        u = x @ params["w_up"].to(cdt)
-        h = F.silu(g) * u
+        g = dense(x, params["w_gate"])
+        u = dense(x, params["w_up"])
+        h = silu(g) * u
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["w_up"].to(cdt), approximate="tanh")
-    return h @ params["w_down"].to(cdt)
+        h = F.gelu(dense(x, params["w_up"]), approximate="tanh")
+    return dense(h, params["w_down"])
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

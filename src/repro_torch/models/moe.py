@@ -39,7 +39,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers
@@ -97,10 +96,11 @@ def moe_dense_oracle(params: dict, x: torch.Tensor, m: MoEConfig
     """x (T,d). All experts computed densely; exact (dropless) combine."""
     w, idx, aux = route(params["router"], x, m.top_k)
     cdt = x.dtype
-    g = torch.einsum("td,edf->tef", x, params["w_gate"].to(cdt))
-    u = torch.einsum("td,edf->tef", x, params["w_up"].to(cdt))
-    h = F.silu(g) * u
-    y_all = torch.einsum("tef,efd->ted", h, params["w_down"].to(cdt))
+    g = torch.einsum("td,edf->tef", x, layers.at_use(params["w_gate"], cdt))
+    u = torch.einsum("td,edf->tef", x, layers.at_use(params["w_up"], cdt))
+    h = layers.silu(g) * u
+    y_all = torch.einsum("tef,efd->ted", h,
+                         layers.at_use(params["w_down"], cdt))
     sel = torch.take_along_dim(y_all, idx[:, :, None], dim=1)      # (T,k,d)
     y = torch.sum(sel * w[:, :, None].to(cdt), dim=1)
     return y, aux
@@ -156,9 +156,10 @@ def _dispatch_compute_combine(x, w, idx, params, m: MoEConfig, e_start: int,
     buf = buf[:e_local]
     sl = (slice(None) if params["w_gate"].shape[0] == e_local
           else slice(e_start, e_start + e_local))
-    g = torch.bmm(buf, params["w_gate"][sl].to(cdt))
-    u = torch.bmm(buf, params["w_up"][sl].to(cdt))
-    yb = torch.bmm(F.silu(g) * u, params["w_down"][sl].to(cdt))
+    g = torch.bmm(buf, layers.at_use(params["w_gate"][sl], cdt))
+    u = torch.bmm(buf, layers.at_use(params["w_up"][sl], cdt))
+    yb = torch.bmm(layers.silu(g) * u,
+                   layers.at_use(params["w_down"][sl], cdt))
 
     vals = yb[le_s.clamp_max(e_local - 1), row] * flat_w[:, None].to(cdt)
     vals = torch.where(keep[:, None], vals, torch.zeros((), dtype=cdt,

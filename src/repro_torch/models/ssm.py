@@ -195,7 +195,7 @@ def init_mamba2(gen: torch.Generator, d_model: int, s: SSMConfig,
 
 def _project(params, x, d_model, s: SSMConfig):
     d_in, nh, ch = dims(d_model, s)
-    proj = x @ params["w_in"].to(x.dtype)
+    proj = layers.dense(x, params["w_in"])
     z = proj[..., :d_in]
     xBC = proj[..., d_in:d_in + ch]
     dt_raw = proj[..., d_in + ch:]
@@ -243,11 +243,13 @@ def _scan_on_mesh(fn, x, dt, A, B, C, init_state=None):
     heads are) are partial sums."""
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import (batch_dim, dim_placements,
-                                                  model_dim)
+    from repro_torch.distributed.sharding import (axis_sizes, batch_dim,
+                                                  dim_placements, model_dim)
     mesh = x.device_mesh
     b, nh = x.shape[0], x.shape[2]
     bd, hd = batch_dim(mesh, b), model_dim(mesh, nh, 2)
+    if hd is None and axis_sizes(mesh)["model"] > 1:
+        return _scan_split_heads(fn, x, dt, A, B, C, init_state, bd)
     on = lambda mdl: dim_placements(mesh, data=bd, model=mdl)  # noqa: E731
     heads = hd is not None
     x_p, bc_p, st_p = on(hd), on(None), on(1 if heads else None)
@@ -264,13 +266,61 @@ def _scan_on_mesh(fn, x, dt, A, B, C, init_state=None):
                                                     init_state)
 
 
+def _scan_split_heads(fn, x, dt, A, B, C, init_state, bd):
+    """``_scan_on_mesh`` where "model" does not divide the heads: each
+    "model" rank takes the operands whole over "model" and scans its own
+    ceil(nh / model) heads (the last ranks' made up with heads of zero
+    input and zero step, whose outputs are dropped), so that a rank scans
+    a share of the heads and not all of them. y and the final state come
+    back gathered over "model" to the heads that exist; the operands'
+    gradients are partial sums over "model" (each rank's covers its own
+    heads)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (axis_sizes, constrain,
+                                                  dim_placements)
+    mesh = x.device_mesh
+    nh = x.shape[2]
+    per = -(-nh // axis_sizes(mesh)["model"])
+    lo = min(mesh.get_local_rank("model") * per, nh)
+    n = min(per, nh - lo)
+
+    def mine(t, dim):
+        part = t.narrow(dim, lo, n)
+        if n == per:
+            return part
+        shape = list(part.shape)
+        shape[dim] = per - n
+        return torch.cat([part, part.new_zeros(shape)], dim)
+
+    def scan(x, dt, A, B, C, s):
+        return fn(mine(x, 2), mine(dt, 2), mine(A, 0), B, C,
+                  None if s is None else mine(s, 1))
+
+    whole = dim_placements(mesh, data=bd)
+    grad = dim_placements(mesh, data=bd, model_partial=True)
+    a_g = dim_placements(mesh, data_partial=bd is not None,
+                         model_partial=True)
+    y_p, st_p = (dim_placements(mesh, data=bd, model=d) for d in (2, 1))
+    st = None if init_state is None else whole
+    y, state = local_map(
+        scan, out_placements=(y_p, st_p),
+        in_placements=(whole, whole, dim_placements(mesh), whole, whole, st),
+        in_grad_placements=(grad, grad, a_g, grad, grad,
+                            None if st is None else grad),
+        device_mesh=mesh, redistribute_inputs=True)(x, dt, A, B, C,
+                                                    init_state)
+    return (constrain(y, mesh, whole, y_p)[:, :, :nh],
+            constrain(state, mesh, whole, st_p)[:, :nh])
+
+
 def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
            impl: Optional[str]):
     """``mamba2_block`` that also returns the projected conv input xBC
     (B,S,ch), whose last width-1 rows are the decode conv state."""
     z, xBC_in, dt_raw, (d_in, nh, ch) = _project(params, x, d_model, s)
-    xBC = F.silu(causal_conv1d(xBC_in, params["conv_w"].to(x.dtype),
-                               params["conv_b"].to(x.dtype)))
+    xBC = layers.silu(causal_conv1d(xBC_in, params["conv_w"].to(x.dtype),
+                                    params["conv_b"].to(x.dtype)))
     xs = xBC[..., :d_in]
     Bm = xBC[..., d_in:d_in + s.state_dim]
     Cm = xBC[..., d_in + s.state_dim:]
@@ -284,13 +334,22 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(b, S, d_in)
     if is_dtensor(y):
-        # the gradient held to the merged heads' placements before the
-        # view's backward splits it into heads (a dim sharded along
-        # part-heads cannot split)
-        from repro_torch.distributed.sharding import constrain
-        y = constrain(y, y.device_mesh, y.placements)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
-    return y @ params["w_out"].to(x.dtype), state, xBC_in
+        # the gated norm and the out-projection on d_in split over "model"
+        # (where the scan gave the heads back whole and "model" divides
+        # d_in), and the gradient held to the merged heads' placements
+        # before the view's backward splits it into heads (a dim sharded
+        # along part-heads cannot split)
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.distributed.sharding import constrain, model_dim
+        mesh = y.device_mesh
+        split = list(y.placements)
+        m = mesh.mesh_dim_names.index("model")
+        if mesh.shape[m] > 1 and model_dim(mesh, d_in, 2) is not None:
+            split[m] = Shard(2)
+        y = constrain(y, mesh, split, y.placements)
+    y = layers.rms_norm(y * layers.silu(z), params["norm_w"])
+    return layers.dense(y, params["w_out"]), state, xBC_in
 
 
 def mamba2_block(params: dict, x, d_model: int, s: SSMConfig,
@@ -318,7 +377,7 @@ def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,
     xBC, conv_state = causal_conv1d_step(
         state["conv"], xBC, params["conv_w"].to(x_t.dtype),
         params["conv_b"].to(x_t.dtype))
-    xBC = F.silu(xBC)
+    xBC = layers.silu(xBC)
     xs = xBC[..., :d_in]
     Bm = xBC[..., d_in:d_in + s.state_dim]
     Cm = xBC[..., d_in + s.state_dim:]
@@ -328,7 +387,7 @@ def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,
     y, ssm_state = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm)
     y = y + params["D"].to(x_t.dtype)[None, :, None] * xh
     y = y.reshape(-1, d_in)
-    y = layers.rms_norm(y * F.silu(z), params["norm_w"])
+    y = layers.rms_norm(y * layers.silu(z), params["norm_w"])
     return y @ params["w_out"].to(x_t.dtype), {"conv": conv_state,
                                                 "ssm": ssm_state}
 

@@ -372,6 +372,43 @@ def _autograd_vjp(fn, ints, tensors, grads) -> tuple:
     return tuple(res)
 
 
+def _remat_apply(fn, ints: tuple, x, tensors: tuple, pctx: ParallelCtx):
+    """``_Recompute.apply(fn, len(ints), *ints, x, *tensors)``. Under a
+    mesh the block's input x, which the Function keeps until its
+    backward, is kept sharded over "model" too (``_saved_placements``),
+    and gathered back where ``fn`` starts, in the forward and in the
+    recompute; the gather's gradient is reduce-scattered to the shard
+    there (``sharding.constrain``). A gather is exact: the values do not
+    change."""
+    saved = _saved_placements(x, pctx)
+    if saved is None:
+        return _Recompute.apply(fn, len(ints), *ints, x, *tensors)
+    from repro_torch.distributed.sharding import constrain
+    mesh, whole, n = pctx.mesh, list(x.placements), len(ints)
+
+    def gathered(*args):
+        return fn(*args[:n], constrain(args[n], mesh, whole, saved),
+                  *args[n + 1:])
+    return _Recompute.apply(gathered, n, *ints, constrain(x, mesh, saved),
+                            *tensors)
+
+
+def _saved_placements(x, pctx: ParallelCtx):
+    """Placements that keep a block input x (B, S, d), replicated over
+    "model", sharded over it along d; None without a mesh, with a "model"
+    axis of size 1, or where "model" does not divide d."""
+    if pctx.mesh is None or not is_dtensor(x):
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    m = pctx.mesh.mesh_dim_names.index("model")
+    k = pctx.mesh.shape[m]
+    if k == 1 or x.placements[m] != Replicate() or x.shape[-1] % k:
+        return None
+    out = list(x.placements)
+    out[m] = Shard(x.ndim - 1)
+    return out
+
+
 def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
                  mrope_positions=None, enc_memory=None, **kw):
     """``block_fwd`` under ``_Recompute``, returning (x, aux): the
@@ -391,7 +428,7 @@ def _remat_block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
             positions=args[0], mrope_positions=args[1] if n == 2 else None,
             enc_memory=rest[0] if mems else None, **kw)
         return (out, aux) if kind == "moe" else out
-    out = _Recompute.apply(fn, len(ints), *ints, x, *mems, *tree_leaves(p))
+    out = _remat_apply(fn, ints, x, (*mems, *tree_leaves(p)), kw["pctx"])
     if kind == "moe":
         return out
     return out, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -531,5 +568,5 @@ def _remat_superblock(blocks: dict, shared: dict, x, cfg: ModelConfig, *,
                             "dense", positions=pos, window=window,
                             causal=True, pctx=pctx)
         return h
-    return _Recompute.apply(fn, 1, positions, x, *tree_leaves(blocks),
-                            *tree_leaves(shared))
+    return _remat_apply(fn, (positions,), x, (*tree_leaves(blocks),
+                                              *tree_leaves(shared)), pctx)

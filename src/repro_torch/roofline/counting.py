@@ -190,11 +190,13 @@ def _dtensor_op(types) -> bool:
 
 class _ByteMode(TorchDispatchMode):
     """Adds up every aten op's operand and result bytes (views and
-    allocations excepted)."""
+    allocations excepted), and keeps the storages those ops read
+    (``read``)."""
 
     def __init__(self):
         super().__init__()
         self.by_op: Dict[str, int] = {}
+        self.read: set = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _dtensor_op(types):
@@ -205,6 +207,8 @@ class _ByteMode(TorchDispatchMode):
             name = str(func.overloadpacket)
             self.by_op[name] = (self.by_op.get(name, 0) + _tensor_bytes(args)
                                 + _tensor_bytes(kwargs) + _tensor_bytes(out))
+            self.read.update(t.untyped_storage()._cdata
+                             for t in _tensors((args, kwargs)))
         return out
 
 
@@ -346,7 +350,10 @@ class StepCounts:
     """What ``count_step`` read: FLOPs and bytes in all, the bytes of the
     aten ops outside the leaves by op, the kernel leaves' share by tag,
     their calls by entry, the CUDA allocator's peak above its level before
-    the call (0 off the card) and the arguments' bytes."""
+    the call (0 off the card) and the bytes of the arguments the step
+    reads (``unread_args``: the positions, among the arguments' tensors,
+    of those it never reads, which the bytes leave out, as ``jax.jit``
+    leaves out an argument its step does not use)."""
     flops: int = 0
     bytes: int = 0
     bytes_by_op: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -355,6 +362,7 @@ class StepCounts:
     leaf_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     peak_bytes: int = 0
     arg_bytes: int = 0
+    unread_args: tuple = ()
     collectives: list = dataclasses.field(default_factory=list)
     collective_causes: List[str] = dataclasses.field(default_factory=list)
     collective_groups: List[tuple] = dataclasses.field(default_factory=list)
@@ -369,10 +377,10 @@ def _contiguous(out):
 
 
 @contextlib.contextmanager
-def _kernel_leaves(counts: StepCounts):
+def _kernel_leaves(counts: StepCounts, read: set):
     """Within the block, each entry of ``LEAVES`` in ``kernels.ops``, and
-    its plain version, adds its work to ``counts`` and runs with no
-    dispatch mode active. A leaf inside a leaf (the plain version that an
+    its plain version, adds its work to ``counts``, the storages of its
+    tensor arguments to ``read``, and runs with no dispatch mode active. A leaf inside a leaf (the plain version that an
     entry runs on the CPU) adds nothing. The kernel module's wrapper hands
     CPU and ``meta`` tensors to the plain version (outside a count it
     raises for meta tensors: no kernel takes them), and the plain version
@@ -397,6 +405,8 @@ def _kernel_leaves(counts: StepCounts):
                 counts.bytes_by_tag[tag] = (counts.bytes_by_tag.get(tag, 0)
                                             + nbytes)
                 counts.leaf_calls[name] = counts.leaf_calls.get(name, 0) + 1
+                read.update(_storage_key(t)
+                            for t in _tensors((args, kwargs)))
             depth[0] += 1
             try:
                 with _disable_current_modes():
@@ -472,6 +482,22 @@ def _first_device(tree) -> torch.device:
     return None
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    """The storage under ``t``, through ``torch.func``'s wrappers (a leaf
+    called under ``vmap`` or ``grad`` gets its arguments wrapped)."""
+    from torch._C._functorch import (get_unwrapped, is_batchedtensor,
+                                     is_gradtrackingtensor)
+    while is_batchedtensor(t) or is_gradtrackingtensor(t):
+        t = get_unwrapped(t)
+    return t.untyped_storage()._cdata
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, or ``t``."""
+    from repro_torch.distributed.sharding import is_dtensor
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _local_bytes(tree) -> int:
     """``_tensor_bytes`` of ``tree`` with each DTensor's local shard."""
     from repro_torch.distributed.sharding import is_dtensor
@@ -488,7 +514,7 @@ def count_step(fn, *args) -> StepCounts:
     """Run ``fn(*args)`` once and count its FLOPs, bytes, collectives and
     live bytes, per device (see the module docstring). The step runs for
     real: a step that updates state in place does so."""
-    counts = StepCounts(arg_bytes=_local_bytes(args))
+    counts = StepCounts()
     dev = _first_device(args)
     on_card = dev is not None and dev.type == "cuda"
     if on_card:
@@ -499,9 +525,15 @@ def count_step(fn, *args) -> StepCounts:
     byte_mode = _ByteMode()
     live = LiveBytes()
     coll = CollectiveCounter()       # topmost: it hands DTensor ops back
-    with _kernel_leaves(counts), _uncounted_shape_propagation(), \
+    with _kernel_leaves(counts, byte_mode.read), \
+            _uncounted_shape_propagation(), \
             flop_mode, byte_mode, live, coll:
         fn(*args)
+    leaves = _tensors(args)
+    read = [_local(t).untyped_storage()._cdata in byte_mode.read
+            for t in leaves]
+    counts.arg_bytes = sum(_local_bytes(t) for t, r in zip(leaves, read) if r)
+    counts.unread_args = tuple(i for i, r in enumerate(read) if not r)
     counts.collectives, counts.collective_causes = coll.ops, coll.causes
     counts.collective_groups = coll.groups
     counts.live_peak_bytes = live.peak

@@ -399,6 +399,28 @@ out["ssd_err"] = max(float((ly - mine(fy, 2)).abs().max()),
                      float((lst - mine(fst, 1)).abs().max()))
 out["ssd_block_err"] = max(float((y.full_tensor() - wy).abs().max()),
                            float((st.full_tensor() - wst).abs().max()))
+# a Mamba2 block of 3 heads, which "model" (2) does not divide, and an
+# in-projection 115 wide: each rank scans its own 2 heads (rank 1's second
+# a padding head) and the in-projection is split over "model" along its
+# contraction; the block's output, final state and gradients by
+# torch.autograd against the same block unsharded
+s3 = SSMConfig(state_dim=8, head_dim=16, expand=2, chunk_size=8)
+mp3 = {k: eighths(w) if k.startswith("w_") else w
+       for k, w in ssm.init_mamba2(gen, 24, s3, torch.float32).items()}
+x3 = eighths(torch.randn(4, 32, 24, generator=gen))
+gy3 = eighths(torch.randn(4, 32, 24, generator=gen))
+plain3 = {k: w.clone().requires_grad_(True) for k, w in mp3.items()}
+wy, wst = ssm.mamba2_block(plain3, x3, 24, s3, impl="chunked")
+want = torch.autograd.grad((wy * gy3).sum(), list(plain3.values()))
+dp3 = {k: rep(w).requires_grad_(True) for k, w in mp3.items()}
+y, st = ssm.mamba2_block(dp3, rows(x3), 24, s3, impl="chunked")
+got = torch.autograd.grad((y * rows(gy3)).sum(), list(dp3.values()))
+out["ssd_split_heads_block_err"] = max(
+    float((y.full_tensor() - wy).abs().max()),
+    float((st.full_tensor() - wst).abs().max()))
+out["ssd_split_heads_grad_rel"] = max(
+    float((g.full_tensor() - w).abs().max() / w.abs().max())
+    for g, w in zip(got, want))
 # the collective counter on hand-built collectives
 from torch.distributed.tensor import Partial, Replicate, Shard
 cc = CollectiveCounter()
@@ -489,6 +511,20 @@ def test_kernels_under_a_mesh(gloo4, kernel):
     assert gloo4[kernel + "_local"] == "Tensor"
     assert gloo4[kernel + "_err"] == 0.0, gloo4[kernel + "_err"]
     assert gloo4[kernel + "_block_err"] < 1e-5, gloo4[kernel + "_block_err"]
+
+
+def test_mamba2_block_with_heads_model_does_not_divide(gloo4):
+    """A Mamba2 block of 3 heads on a (2, 2) mesh, each "model" rank
+    scanning its own share of the heads (``ssm._scan_split_heads``) and
+    its in-projection, whose output "model" does not divide, split along
+    its contraction (``sharding.split_contraction``): the output and the
+    final state within 1e-5 of the unsharded block's, and the gradients of
+    every parameter by ``torch.autograd`` within 1e-5 of each one's
+    largest entry (sums over the ranks in other orders)."""
+    assert gloo4["ssd_split_heads_block_err"] < 1e-5, gloo4[
+        "ssd_split_heads_block_err"]
+    assert gloo4["ssd_split_heads_grad_rel"] < 1e-5, gloo4[
+        "ssd_split_heads_grad_rel"]
 
 
 def test_hybrid_model_serves_on_a_mesh(gloo4):

@@ -31,6 +31,9 @@ from repro_torch.roofline import counting
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 OVERRIDES = dict(num_layers=2, d_model=128, num_heads=4, num_kv_heads=4,
                  head_dim=32, d_ff=256, vocab_size=512)
+# the reduced Qwen2-VL (a vlm's prefill, fed embeddings), every field
+VLM = {f.name: getattr(configs.get("qwen2-vl-7b").reduced(), f.name)
+       for f in dataclasses.fields(configs.get("qwen2-vl-7b").reduced())}
 
 REFERENCE = """
 import json, sys
@@ -38,11 +41,16 @@ import repro.compat  # noqa: F401
 from repro.launch import dryrun
 from repro.launch.mesh import make_mesh
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
-with mesh:
-    lowered, n_tok, kind, model = dryrun.lower_cell(
-        "stablelm-1.6b", "train_4k", mesh, overrides=OVERRIDES)
-    c = lowered.compile()
-print(json.dumps({"arg_bytes": c.memory_analysis().argument_size_in_bytes}))
+out = {}
+for name, arch, shape, over in (
+        ("arg_bytes", "stablelm-1.6b", "train_4k", OVERRIDES),
+        ("vlm_prefill_arg_bytes", "qwen2-vl-7b", "prefill_32k", VLM)):
+    with mesh:
+        lowered, n_tok, kind, model = dryrun.lower_cell(
+            arch, shape, mesh, overrides=over)
+        c = lowered.compile()
+    out[name] = c.memory_analysis().argument_size_in_bytes
+print(json.dumps(out))
 """
 
 
@@ -51,7 +59,8 @@ def ref():
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
     res = subprocess.run([sys.executable, "-c", "OVERRIDES = "
-                          + repr(OVERRIDES) + "\n" + REFERENCE],
+                          + repr(OVERRIDES) + "\nVLM = " + repr(VLM) + "\n"
+                          + REFERENCE],
                          capture_output=True, text=True, timeout=600,
                          env=env)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -71,14 +80,32 @@ def cell():
                     by_axis=dryrun.coll_by_axis(c, mesh))
 
 
-def test_arg_bytes_match_reference(ref, cell):
+@pytest.fixture(scope="module")
+def vlm_prefill():
+    """The reduced Qwen2-VL's prefill_32k cell counted on meta in a fake
+    world of 8 ranks: its argument bytes, from the count and from the
+    specs."""
+    with dryrun.fake_world(8):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"),
+                         device_type="cpu")
+        c, _, _, _, specs = dryrun.count_cell("qwen2-vl-7b", "prefill_32k",
+                                              mesh, overrides=VLM)
+        return c.arg_bytes, dryrun.spec_local_bytes(specs, mesh)
+
+
+def test_arg_bytes_match_reference(ref, cell, vlm_prefill):
     """Rank 0's argument bytes equal the reference's
     ``memory_analysis().argument_size_in_bytes`` for the same cell, but for
     the two scalars the port's count leaves out (0-dim tensors count no
-    bytes): AdamW's int32 step count and the f32 learning rate."""
+    bytes): AdamW's int32 step count and the f32 learning rate. The
+    reduced Qwen2-VL's prefill_32k cell has no scalar and equals the
+    reference's to the byte: its prefill, fed embeddings, never reads the
+    embedding table, which the count leaves out (``unread_args``) as the
+    reference's ``jax.jit`` does (``keep_unused=False``)."""
     scalars = 4 + 4
     assert cell["counts"].arg_bytes + scalars == ref["arg_bytes"]
     assert cell["spec_bytes"] == cell["counts"].arg_bytes
+    assert vlm_prefill[0] == vlm_prefill[1] == ref["vlm_prefill_arg_bytes"]
 
 
 def test_pod_axis_carries_collectives(cell):

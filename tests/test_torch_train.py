@@ -425,3 +425,66 @@ def test_trainer_final_save_waits_for_a_pending_save(tmp_path):
     assert len(out["losses"]) == 4
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "step_0000000002", "step_0000000004"]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "mamba2-130m",
+                                  "deepseek-moe-16b", "zamba2-7b",
+                                  "qwen2-vl-7b", "seamless-m4t-medium"])
+def test_bf16_gradients_bit_equal_by_func_and_autograd(arch, remat):
+    """A reduced model's loss gradients in bf16 compute by ``torch.func``
+    (the lane pool's route, and ``make_train_step``'s for plain params)
+    and by ``torch.autograd`` (``mesh_grads``, a mesh step's route) are
+    bit-equal, for a model of each family: SiLU's backward is one kernel
+    on both routes (``layers.silu``), where ``torch.func`` differentiated
+    ``F.silu`` through bf16 ops (0.006-0.010 of a leaf's largest entry
+    apart). The batch is the train cell's, of 2 sequences of 64, drawn
+    from a seed (token ids, a vlm's or an encoder's embeddings, M-RoPE
+    positions)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.train import mesh_grads
+    cfg = dataclasses.replace(configs.get(arch).reduced(),
+                              compute_dtype="bfloat16", remat=remat)
+    model = Model(cfg, device="cpu",
+                  pctx=ParallelCtx(moe_oracle=cfg.family == "moe"))
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(20)
+    batch = {}
+    for name, spec in model.input_specs(ShapeSpec("t", 64, 2,
+                                                  "train")).items():
+        if name == "mrope_pos":
+            value = np.broadcast_to(np.arange(64), spec.shape)
+        elif spec.dtype == torch.int32:
+            value = rng.integers(0, cfg.vocab_size, spec.shape)
+        else:
+            value = rng.standard_normal(spec.shape)
+        batch[name] = torch.from_numpy(np.ascontiguousarray(value)).to(
+            spec.dtype)
+    by_func, _ = torch.func.grad(model.loss, has_aux=True)(params, batch)
+    by_autograd, _ = mesh_grads(model.loss, params, batch)
+    for a, b in zip(packing.tree_leaves(by_func),
+                    packing.tree_leaves(by_autograd)):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, b)
+
+
+def test_silu_backward_is_autograds_kernel():
+    """``layers.silu``'s value is ``F.silu``'s; its gradient by
+    ``torch.func.grad``, by ``torch.autograd`` and under
+    ``torch.func.vmap`` is ``aten.silu_backward``'s in bf16 (the kernel
+    ``torch.autograd`` runs for ``F.silu``), and in f32 it is what
+    ``torch.func`` gave for ``F.silu``."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(3)
+    x32, g32 = (torch.from_numpy(4 * rng.standard_normal((4, 96)).astype(
+        np.float32)) for _ in range(2))
+    for x, g in ((x32.bfloat16(), g32.bfloat16()), (x32, g32)):
+        want = (torch.ops.aten.silu_backward(g, x) if x.dtype != torch.float32
+                else torch.func.grad(lambda x: (F.silu(x) * g).sum())(x))
+        assert torch.equal(layers.silu(x), F.silu(x))
+        loss = lambda x: (layers.silu(x) * g).float().sum()  # noqa: E731
+        assert torch.equal(torch.func.grad(loss)(x), want)
+        xr = x.clone().requires_grad_(True)
+        assert torch.equal(torch.autograd.grad(loss(xr), xr)[0], want)
+        lanes = torch.func.vmap(torch.func.grad(loss))(torch.stack([x, x]))
+        assert torch.equal(lanes[0], want) and torch.equal(lanes[1], want)
