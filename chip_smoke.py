@@ -159,11 +159,13 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    largest entry of the unsharded ``torch.func`` route's and bit-equal
    to them in bf16 compute, 24 B3 launches, ``compressed_psum`` and
    ``allgather_matmul`` at world size 1, the peak beside the meta
-   count's; then [dryrun]: four full-size production cells, each a
-   ``python -m repro_torch.launch.dryrun`` child: every cell OK, argument
-   bytes two ways equal, pod-axis bytes on the multi-pod cell, each
-   cell's temp beside the reference's and llama3-405b train_4k's within
-   twice it;
+   count's whole peak (outputs included); then [dryrun]: seven full-size
+   production cells, each a
+   ``python -m repro_torch.launch.dryrun`` child, all started together:
+   every cell OK, argument bytes two ways equal, pod-axis bytes on the
+   multi-pod cell, each cell's temp (outputs left out) within twice the
+   reference's and its TFLOP within 1.25 times, its outputs' bytes
+   logged;
 10. [examples] the four entry scripts ``examples/torch_*.py`` on the card
    as child processes at the reference's CI sizes (quickstart and
    serve_batch as they are, parametric_sweep ``--tasks 2 --steps 3``,
@@ -4150,24 +4152,36 @@ DIST_TRAIN_RTOL = 1e-5
 DIST_TRAIN_BF16_RTOL = 0.0
 DIST_TRAIN_LR = 1e-4
 # [dryrun]: full-size production cells, each counted on meta in a fake
-# process group by its own ``python -m repro_torch.launch.dryrun`` child
+# process group by its own ``python -m repro_torch.launch.dryrun`` child,
+# all started together
 DRYRUN_CELLS = (("llama3-405b", "train_4k", "single"),
                 ("arctic-480b", "train_4k", "multi"),
                 ("deepseek-moe-16b", "decode_32k", "single"),
-                ("zamba2-7b", "long_500k", "single"))
+                ("zamba2-7b", "long_500k", "single"),
+                ("qwen2-vl-7b", "train_4k", "single"),
+                ("zamba2-7b", "train_4k", "single"),
+                ("llama3-405b", "prefill_32k", "single"))
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
-# the reference's temp_gb_dev for the same cells (memory_analysis()'s
-# temp_size_in_bytes of XLA's CPU compile), from
+# the reference's (temp_gb_dev, TFLOP a device) for the same cells: XLA's
+# temp_size_in_bytes of its CPU compile (which leaves out the step's
+# outputs, as the port's temp_gb_dev does) and hlo_gflops_dev / 1000, from
 # `DRYRUN_DEVICES=256 PYTHONPATH=src python -m repro.launch.dryrun --arch A
 # --shape S --mesh single` (512 and --mesh multi for the multi-pod cell)
 # with jax 0.9.0; kept here because this script imports nothing of the
-# reference. llama3-405b's train cell is held to twice it (C18)
-DRYRUN_REFERENCE_TEMP_GB = {
-    ("llama3-405b", "train_4k", "single"): 80.929361952,
-    ("arctic-480b", "train_4k", "multi"): 24.31,
-    ("deepseek-moe-16b", "decode_32k", "single"): 10.13,
-    ("zamba2-7b", "long_500k", "single"): 0.24}
-DRYRUN_TEMP_GATED = ("llama3-405b", "train_4k", "single")
+# reference. Each cell is held to twice the reference's temp and 1.25
+# times its TFLOP (C18, C24, C25)
+DRYRUN_REFERENCE = {
+    ("llama3-405b", "train_4k", "single"): (80.929361952, 12935.71994104627),
+    ("arctic-480b", "train_4k", "multi"): (24.3084756, 321.39240275968),
+    ("deepseek-moe-16b", "decode_32k", "single"): (10.134694672,
+                                                   0.020482883584),
+    ("zamba2-7b", "long_500k", "single"): (0.243398616, 0.000450273408),
+    ("qwen2-vl-7b", "train_4k", "single"): (14.764463768, 241.94624520192),
+    ("zamba2-7b", "train_4k", "single"): (28.538585792, 344.642713288704),
+    ("llama3-405b", "prefill_32k", "single"): (18.414044048,
+                                               4398.596792254464)}
+DRYRUN_TEMP_RATIO = 2.0
+DRYRUN_TFLOP_RATIO = 1.25
 
 
 def dist_ep_shape(prompt_len: int):
@@ -4185,7 +4199,9 @@ def meta_twins(ep_prompt_len: int) -> None:
     with the NCCL one): [dist-ep]'s EP prefill and [dist-train]'s sharded
     step counted on meta tensors in a fake group of one rank on a (1, 1)
     mesh. Prints one JSON line: each one's collectives (kind, result
-    bytes, group size), argument bytes and the peak of its temporaries."""
+    bytes, group size), argument bytes and the whole peak of the storages
+    it makes (``live_peak_bytes``: its outputs included, what the card's
+    allocator holds above the arguments)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
@@ -4202,7 +4218,7 @@ def meta_twins(ep_prompt_len: int) -> None:
                                           op.group_size]
                                          for op in c.collectives],
                          "arg_bytes": c.arg_bytes,
-                         "temp_bytes": c.live_peak_bytes,
+                         "live_peak_bytes": c.live_peak_bytes,
                          "flops": c.flops}
     print(json.dumps(out))
 
@@ -4540,7 +4556,7 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
     agm = allgather_matmul(x, w, dist.group.WORLD)
     if not torch.equal(agm, x @ w):
         raise AssertionError("[dist-train] allgather_matmul != x @ W")
-    pred = twins["train"]["arg_bytes"] + twins["train"]["temp_bytes"]
+    pred = twins["train"]["arg_bytes"] + twins["train"]["live_peak_bytes"]
     log(f"[dist-train] compressed_psum fp32/bf16/int8 of {n_ok} gradients "
         f"equal to g, g.bfloat16().float() and dequantize(quantize(g)); "
         f"allgather_matmul at world size 1 equal to x @ W")
@@ -4549,9 +4565,10 @@ def dist_train(record: dict, mesh, twins: dict) -> None:
         f"process running; DTensor's host overhead at one rank); peak above what was held before the "
         f"steps {peak / 1e9:.3f} GB (max_memory_allocated: each step's new "
         f"params and moments and its temporaries), dry-run prediction "
-        f"arg + temp {pred / 1e9:.3f} GB (arg "
-        f"{twins['train']['arg_bytes'] / 1e9:.3f} + temp "
-        f"{twins['train']['temp_bytes'] / 1e9:.3f}, counted on meta)")
+        f"arg + whole peak {pred / 1e9:.3f} GB (arg "
+        f"{twins['train']['arg_bytes'] / 1e9:.3f} + the whole peak of what "
+        f"the step makes, outputs included, "
+        f"{twins['train']['live_peak_bytes'] / 1e9:.3f}, counted on meta)")
     record["dist_train"] = {"wall_ms_sharded": ws, "wall_ms_unsharded": wu,
                             "peak_gb": peak / 1e9,
                             "predicted_arg_temp_gb": pred / 1e9,
@@ -4571,8 +4588,12 @@ def gc_collect() -> None:
 def dryrun_phase(results: dict) -> None:
     """[dryrun]: every cell's child exited 0 with an OK line; each row's
     ``arg_gb_dev`` equals the argument bytes summed from its specs; the
-    multi-pod cell carries collective bytes on its pod axis; arg + temp
-    per device printed beside 80 GB (a reading, not a gate)."""
+    multi-pod cell carries collective bytes on its pod axis; each cell's
+    temp (its outputs left out, as the reference's) within twice the
+    reference's and its TFLOP within 1.25 times; arg + peak per device
+    (the peak of temporaries and outputs together, what the card's
+    allocator would hold) printed beside 80 GB (a reading, not a gate),
+    and the outputs' bytes."""
     for (arch, shape, mesh), (label, (rc, text, secs)) in zip(
             DRYRUN_CELLS, results.items()):
         ok_lines = [ln for ln in text.splitlines()
@@ -4595,19 +4616,27 @@ def dryrun_phase(results: dict) -> None:
         if mesh == "multi" and not row["coll_by_axis_gb"].get("pod", 0) > 0:
             raise AssertionError(f"[dryrun] {label}: no collective bytes on "
                                  f"the pod axis: {row['coll_by_axis_gb']}")
-        total = row["arg_gb_dev"] + row["temp_gb_dev"]
-        ref_temp = DRYRUN_REFERENCE_TEMP_GB[(arch, shape, mesh)]
-        log(f"[dryrun] {label}: arg + temp {total:.2f} GB a device beside "
+        total = row["arg_gb_dev"] + row["peak_gb_dev"]
+        ref_temp, ref_tflop = DRYRUN_REFERENCE[(arch, shape, mesh)]
+        tflop = row["gflops_dev"] / 1e3
+        log(f"[dryrun] {label}: arg + peak {total:.2f} GB a device beside "
             f"the card's 80 GB ({'fits' if total <= 80 else 'does not fit'}"
             f"; a count against HW.h100's data-sheet constants, not a "
-            f"measurement); temp {row['temp_gb_dev']:.2f} GB beside the "
-            f"reference's {ref_temp} ({row['temp_gb_dev'] / ref_temp:.2f}x)"
-            f"; collectives by axis {row['coll_by_axis_gb']}; {secs:.1f} s")
-        if (arch, shape, mesh) == DRYRUN_TEMP_GATED and \
-                not row["temp_gb_dev"] <= 2 * ref_temp:
+            f"measurement); out {row['out_gb_dev']:.4g} GB; temp "
+            f"{row['temp_gb_dev']:.4g} GB beside the reference's "
+            f"{ref_temp:.4g} ({row['temp_gb_dev'] / ref_temp:.3f}x); "
+            f"{tflop:.4g} TFLOP beside the reference's {ref_tflop:.4g} "
+            f"({tflop / ref_tflop:.3f}x); collectives by axis "
+            f"{row['coll_by_axis_gb']}; {secs:.1f} s")
+        if not row["temp_gb_dev"] <= DRYRUN_TEMP_RATIO * ref_temp:
             raise AssertionError(f"[dryrun] {label}: temp "
                                  f"{row['temp_gb_dev']:.2f} GB a device > "
-                                 f"twice the reference's {ref_temp}")
+                                 f"{DRYRUN_TEMP_RATIO} x the reference's "
+                                 f"{ref_temp}")
+        if not tflop <= DRYRUN_TFLOP_RATIO * ref_tflop:
+            raise AssertionError(f"[dryrun] {label}: {tflop:.4g} TFLOP a "
+                                 f"device > {DRYRUN_TFLOP_RATIO} x the "
+                                 f"reference's {ref_tflop:.4g}")
 
 
 def dist_phases(record: dict) -> None:

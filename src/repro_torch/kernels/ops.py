@@ -116,8 +116,8 @@ def backward_rows(batch: int, seq: int, heads: int, chunk_k: int) -> int:
     """Query rows per slice of ``_FlashAttention.backward``: the largest
     power of two whose f32 score block (batch, heads, rows, chunk_k) fits
     in ``BACKWARD_BLOCK_BYTES`` (at least 1), or all ``seq`` rows when
-    they fit. 512 rows at qwen2-vl-7b's train_4k layer (16 sequences, 28
-    heads on every rank: 0.94 GB a block)."""
+    they fit. 512 rows at 16 sequences of 4096 with 28 heads (0.94 GB a
+    block)."""
     per_row = batch * heads * chunk_k * 4
     rows = 1 << max(0, (BACKWARD_BLOCK_BYTES // max(per_row, 1)).bit_length()
                     - 1)

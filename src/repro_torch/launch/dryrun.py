@@ -13,7 +13,14 @@ DTensors with the sharding rules' placements, DTensor propagates shardings
 op by op (GSPMD's part), and ``roofline.counting.count_step`` counts what
 rank 0 runs: its FLOPs and bytes, the collectives DTensor and the
 ``local_map`` regions issue (``CollectiveOp``s, priced by the reference's
-rules), and the peak of the bytes its temporaries hold. A ``"fake"`` group
+rules), the bytes of the storages that hold what the step returns
+(``out_gb_dev``: XLA's ``output_size_in_bytes``, a train step's new params
+and moments, a prefill's logits and cache) and the peak of the bytes its
+other storages hold (``temp_gb_dev``: XLA's ``temp_size_in_bytes``, which
+the reference's dry-run reports under that name), and the peak of all of
+them together (``peak_gb_dev``: what a card's allocator holds above the
+arguments, so a cell fits a card where ``arg_gb_dev + peak_gb_dev`` does).
+A ``"fake"`` group
 completes every collective at once without moving data, so the count is
 the step's program, not a run.
 
@@ -268,7 +275,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             "count_s": time.perf_counter() - t0,
             "arg_gb_dev": c.arg_bytes / 1e9,
             "arg_gb_dev_from_specs": arg_check / 1e9,
-            "temp_gb_dev": c.live_peak_bytes / 1e9,
+            "temp_gb_dev": c.temp_peak_bytes / 1e9,
+            "out_gb_dev": c.output_bytes / 1e9,
+            "peak_gb_dev": c.live_peak_bytes / 1e9,
             "coll_by_kind_gb": {k: v / 1e9 for k, v in by_kind.items()},
             "coll_traffic_gb_dev": traffic / 1e9,
             "coll_by_axis_gb": by_axis,
@@ -287,7 +296,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
             json.dump(row, f, indent=1)
         print(f"[dryrun] OK   {label}: "
               f"mem/dev arg={row['arg_gb_dev']:.2f}+tmp="
-              f"{row['temp_gb_dev']:.2f}GB "
+              f"{row['temp_gb_dev']:.2f}GB out={row['out_gb_dev']:.2f}GB "
+              f"peak={row['peak_gb_dev']:.2f}GB "
               f"flops/dev={row['gflops_dev']:.1f}G "
               f"coll/dev={row['coll_gb_dev']:.3f}GB "
               f"bottleneck={row['bottleneck']} "

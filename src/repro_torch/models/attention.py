@@ -157,7 +157,8 @@ def mesh_head_dims(mesh, num_heads: int, num_kv_heads: int) -> tuple:
     or stay whole (None): all heads where "model" divides the KV heads;
     else the query heads alone where each rank's query heads read a whole
     number of KV heads (k and v then whole on every rank, which reads its
-    own); else none."""
+    own); else none, and each "model" rank then attends with its own share
+    of the query heads (``_head_share``)."""
     from repro_torch.distributed.sharding import axis_sizes
     m = axis_sizes(mesh)["model"]
     if num_kv_heads % m == 0:
@@ -176,6 +177,22 @@ def _local_kv_heads(mesh, num_heads: int, num_kv_heads: int) -> tuple:
     r = mesh.get_local_rank("model")
     hl, group = num_heads // m, num_heads // num_kv_heads
     return r * hl // group, ((r + 1) * hl - 1) // group + 1
+
+
+def _head_share(mesh, num_heads: int, num_kv_heads: int) -> tuple:
+    """(lo, n, per, kv) of this "model" rank where "model" divides neither
+    the KV heads nor the query heads in whole groups: the rank attends
+    with query heads [lo, lo + n), made up to per = ceil(Hq / model) with
+    heads of zero input (the last ranks'), and ``kv`` is the KV head each
+    of them reads (a rank's heads may span KV groups unevenly, so B3
+    takes Hq == Hkv). A padding head reads the rank's last KV head."""
+    from repro_torch.distributed.sharding import axis_sizes
+    per = -(-num_heads // axis_sizes(mesh)["model"])
+    lo = min(mesh.get_local_rank("model") * per, num_heads)
+    n = min(per, num_heads - lo)
+    group = num_heads // num_kv_heads
+    kv = [(lo + i) // group for i in range(n)]
+    return lo, n, per, tuple(kv + [kv[-1] if kv else 0] * (per - n))
 
 
 def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
@@ -200,28 +217,44 @@ def attn_with_kv(params: dict, x, k, v, num_heads: int, head_dim: int):
 
 
 def _kv_slice(k, v, kv_heads):
+    """k and v narrowed to the KV heads ``kv_heads``: a range (lo, hi), as
+    views; an index tensor, gathered in its order; None, all of them."""
     if kv_heads is None:
         return k, v
+    if isinstance(kv_heads, torch.Tensor):
+        return k.index_select(2, kv_heads), v.index_select(2, kv_heads)
     lo, hi = kv_heads
     return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
 def _on_mesh(fn, q, k, v, extra, extra_placements, qd, kd, num_heads,
-             num_kv_heads):
+             num_kv_heads, cached: bool = False):
     """``fn(q, k, v, *extra, kv_heads=...)`` on each rank's local tensors
     under ``local_map``: q, k, v with the batch over the data axes where
     they divide it and the heads as ``mesh_head_dims`` says; ``extra``
-    DTensors with their ``extra_placements``. When k and v are whole and
-    the query heads are not, ``kv_heads`` is the range this rank reads
-    (else None), and the gradients of k and v are partial sums over
-    "model"."""
+    DTensors with their ``extra_placements`` (``cached``: a KV cache among
+    them, written in place). When k and v are whole and the query heads
+    are not, ``kv_heads`` is the KV heads this rank reads (``_kv_slice``;
+    else None), and the gradients of k and v are partial sums over
+    "model". Where "model" divides neither, the work is split over
+    "model" all the same: along the batch, where no cache is written and
+    the data axes and "model" together divide it (``_rows_over_model``),
+    else each rank attends with its share of the query heads
+    (``_head_share``)."""
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import batch_dim, dim_placements
+    from repro_torch.distributed.sharding import (axis_sizes, batch_dim,
+                                                  dim_placements, dp_size)
     mesh = q.device_mesh
     bd = batch_dim(mesh, q.shape[0])
     qp = dim_placements(mesh, data=bd, model=qd)
     kp = dim_placements(mesh, data=bd, model=kd)
+    if qd is None and kd is None:
+        if (not cached and bd is not None and q.shape[0] % (
+                dp_size(mesh) * axis_sizes(mesh)["model"]) == 0):
+            return _rows_over_model(fn, q, k, v, extra, extra_placements, qp)
+        return _head_share_map(fn, q, k, v, extra, extra_placements, qp,
+                               num_heads, num_kv_heads)
     split = qd is not None and kd is None
     kg = dim_placements(mesh, data=bd, model_partial=True) if split else kp
     kv_heads = (_local_kv_heads(mesh, num_heads, num_kv_heads) if split
@@ -231,6 +264,67 @@ def _on_mesh(fn, q, k, v, extra, extra_placements, qd, kd, num_heads,
         in_placements=(qp, kp, kp, *extra_placements),
         in_grad_placements=(qp, kg, kg, *extra_placements),
         device_mesh=mesh, redistribute_inputs=True)(q, k, v, *extra)
+
+
+def _rows_over_model(fn, q, k, v, extra, extra_placements, whole):
+    """``_on_mesh`` with q, k, v and ``extra`` split along the batch over
+    "model" as well as over the data axes: each rank attends with every
+    head for its own rows, and the output comes back gathered over "model"
+    to ``whole``'s placements (the gradients are exact on each rank's
+    rows)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import constrain
+
+    def rows(p):
+        """``p`` with "model" splitting the dim the data axes split."""
+        d = next(x.dim for x in p if x.is_shard())
+        return [x if x.is_shard() else Shard(d) for x in p]
+    qr = rows(whole)
+    extra_rows = tuple(None if p is None else rows(p)
+                       for p in extra_placements)
+    out = local_map(
+        functools.partial(fn, kv_heads=None), out_placements=qr,
+        in_placements=(qr, qr, qr, *extra_rows),
+        in_grad_placements=(qr, qr, qr, *extra_rows),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, *extra)
+    return constrain(out, q.device_mesh, whole, qr)
+
+
+def _head_share_map(fn, q, k, v, extra, extra_placements, whole, num_heads,
+                    num_kv_heads):
+    """``_on_mesh`` with q, k, v whole over "model" and each rank attending
+    with its own share of the query heads (``_head_share``): the output
+    comes back gathered over "model" to the heads that exist, and the
+    gradients of q, k and v are partial sums over "model" (each rank's
+    covers its own heads)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (batch_dim, constrain,
+                                                  dim_placements)
+    mesh = q.device_mesh
+    bd = batch_dim(mesh, q.shape[0])
+    lo, n, per, kv = _head_share(mesh, num_heads, num_kv_heads)
+
+    def share(q, k, v, *rest):
+        q = q.narrow(2, lo, n)
+        if n < per:
+            q = torch.cat([q, q.new_zeros((*q.shape[:2], per - n,
+                                           q.shape[3]))], 2)
+        # gathered on every rank, a view on none: a rank whose heads read
+        # every KV head would otherwise take k whole as a view, and DTensor
+        # then hands its gradient back in another placement than the other
+        # ranks', whose collectives no longer match
+        return fn(q, k, v, *rest, kv_heads=torch.tensor(kv, device=k.device))
+    part = dim_placements(mesh, data=bd, model_partial=True)
+    out_p = dim_placements(mesh, data=bd, model=2)
+    out = local_map(
+        share, out_placements=out_p,
+        in_placements=(whole, whole, whole, *extra_placements),
+        in_grad_placements=(part, part, part, *extra_placements),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, *extra)
+    return constrain(out, mesh, whole, out_p)[:, :, :num_heads]
 
 
 def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
@@ -288,7 +382,7 @@ def attention_block(params: dict, x, *, num_heads: int, num_kv_heads: int,
                        _heads(v, num_kv_heads, head_dim, kd),
                        (positions, mrope_positions, *leaves),
                        (rows, mrope, *cache), qd, kd, num_heads,
-                       num_kv_heads)
+                       num_kv_heads, cached=kv_cache is not None)
     else:
         q = q.reshape(B, S, num_heads, head_dim)
         k = k.reshape(B, S, num_kv_heads, head_dim)
@@ -316,9 +410,9 @@ def _attend(q, k, v, positions, mrope_positions, ck, cv, clen, cpos, *,
             rope_theta, causal, window, impl, prob_dtype, kv_heads=None):
     """``attention_block`` between its projections: rotate q and k, attend
     (with the cache's leaves ``ck``, ``cv``, ``clen``, ``cpos`` when
-    given, writing them in place). Returns (B, S, Hq, D). ``kv_heads``
-    [lo, hi): q holds the query heads that read only these KV heads of k,
-    v and the cache (which hold all of them)."""
+    given, writing them in place). Returns (B, S, Hq, D). ``kv_heads``:
+    q holds the query heads that read only these KV heads of k, v and the
+    cache (which hold all of them; ``_kv_slice``)."""
     B, S = q.shape[:2]
     kv_cache = None if ck is None else {"k": ck, "v": cv, "len": clen,
                                         "pos": cpos}

@@ -34,9 +34,32 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    out = x32 * torch.rsqrt(var + eps)
+    var = _row_stat(x, x32.square().mean(dim=-1, keepdim=True))
+    out = x32 * _row_stat(x, torch.rsqrt(var + eps))
     return (out * _whole(weight).float()).to(x.dtype)
+
+
+def _row_stat(x: torch.Tensor, stat: torch.Tensor) -> torch.Tensor:
+    """A statistic of each row of ``x`` (B, S, 1), under a mesh where
+    ``x``'s last dim is split over "model" held whole on "model" in the
+    forward (the row's partial sums added) and in the backward (the
+    gradients its rows' shards give it added), so that the norm's
+    gradient comes back split as ``x`` is. Left to DTensor, a version may
+    place such a sum along the batch over "model" instead, and the
+    gradients of the ops around the norm then gather the batch over the
+    data axes. Off a mesh, or with ``x``'s last dim whole, ``stat``."""
+    if not is_dtensor(x):
+        return stat
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import constrain
+    mesh = x.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+    if x.placements[m] != Shard(x.ndim - 1):
+        return stat
+    whole = list(x.placements)
+    whole[m] = Replicate()
+    return constrain(stat, mesh, whole)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

@@ -314,16 +314,84 @@ def _scan_split_heads(fn, x, dt, A, B, C, init_state, bd):
             constrain(state, mesh, whole, st_p)[:, :nh])
 
 
+def _project_on_mesh(params: dict, x, d_in: int, nh: int, s: SSMConfig):
+    """The in-projection and the causal conv of ``_block`` on a mesh whose
+    "model" axis has more than one rank: z, the conv's outputs x, B and C
+    (after SiLU), dt before its bias, and the decode conv state (the
+    projected conv input's last width-1 rows). One product for each column
+    block of w_in (z, x, B, C, dt) at its use: w_in gathered whole over
+    "model" (and over the data axes where it takes a gradient:
+    ``layers.at_use``), each block then split over "model" along its
+    columns where "model" divides its width, and its product split along
+    the contraction where not (``sharding.split_contraction``); the conv
+    likewise on each of x, B and C. So every output keeps its own split
+    over "model" and its weight gradient is computed on it: one product
+    split over "model" would be cut into z, xBC and dt off its shard
+    edges, for which DTensor gathers the whole (B, S, d_in + ch + nh)
+    product (and some versions compute its weight gradient whole on every
+    rank). x comes back split over "model" along whole heads, or whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import (constrain, model_dim,
+                                                  split_contraction)
+    mesh = x.device_mesh
+    m = mesh.mesh_dim_names.index("model")
+
+    def on_model(t, p):
+        out = list(t.placements)
+        out[m] = p
+        return out
+
+    def whole(t):
+        return constrain(t, mesh, on_model(t, Replicate()), t.placements)
+
+    N, tail = s.state_dim, s.conv_width - 1
+    w = whole(layers.at_use(params["w_in"], x.dtype))
+    conv_w, conv_b = (whole(params[k].to(x.dtype))
+                      for k in ("conv_w", "conv_b"))
+    outs, lo = [], 0
+    for n in (d_in, d_in, N, N, nh):             # z, x, B, C, dt
+        blk = w[:, lo:lo + n]
+        if model_dim(mesh, n, 1) is not None:
+            blk = constrain(blk, mesh, on_model(blk, Shard(1)),
+                            blk.placements)
+        out = split_contraction(x, blk)
+        # its gradient held to its placements, so that the weight
+        # gradient is taken on the split whatever DTensor would pick
+        outs.append(constrain(out, mesh, out.placements))
+        lo += n
+    z, x_in, b_in, c_in, dt_raw = outs
+    convs, lo = [], 0
+    for t in (x_in, b_in, c_in):
+        n = t.shape[-1]
+        convs.append(layers.silu(causal_conv1d(t, conv_w[:, lo:lo + n],
+                                               conv_b[lo:lo + n])))
+        lo += n
+    xs = convs[0]
+    xs = constrain(xs, mesh, on_model(
+        xs, Replicate() if model_dim(mesh, nh, 0) is None else Shard(2)))
+    state = torch.cat([t[:, -tail:] for t in (x_in, b_in, c_in)], -1)
+    return z, xs, convs[1], convs[2], dt_raw, state
+
+
 def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
            impl: Optional[str]):
-    """``mamba2_block`` that also returns the projected conv input xBC
-    (B,S,ch), whose last width-1 rows are the decode conv state."""
-    z, xBC_in, dt_raw, (d_in, nh, ch) = _project(params, x, d_model, s)
-    xBC = layers.silu(causal_conv1d(xBC_in, params["conv_w"].to(x.dtype),
-                                    params["conv_b"].to(x.dtype)))
-    xs = xBC[..., :d_in]
-    Bm = xBC[..., d_in:d_in + s.state_dim]
-    Cm = xBC[..., d_in + s.state_dim:]
+    """``mamba2_block`` that also returns the decode conv state: the last
+    width-1 rows of the projected conv input xBC (B, S, ch)."""
+    d_in, nh, ch = dims(d_model, s)
+    if is_dtensor(x) and x.device_mesh.shape[
+            x.device_mesh.mesh_dim_names.index("model")] > 1:
+        z, xs, Bm, Cm, dt_raw, conv_state = _project_on_mesh(
+            params, x, d_in, nh, s)
+    else:
+        z, xBC_in, dt_raw, _ = _project(params, x, d_model, s)
+        xBC = layers.silu(causal_conv1d(xBC_in,
+                                        params["conv_w"].to(x.dtype),
+                                        params["conv_b"].to(x.dtype)))
+        xs = xBC[..., :d_in]
+        Bm = xBC[..., d_in:d_in + s.state_dim]
+        Cm = xBC[..., d_in + s.state_dim:]
+        conv_state = xBC_in[:, -(s.conv_width - 1):]
     b, S, _ = x.shape
     xh = xs.reshape(b, S, nh, s.head_dim)    # a view: the kernel reads xBC
     dt = F.softplus(dt_raw.to(_F32) + params["dt_bias"])
@@ -349,7 +417,7 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
             split[m] = Shard(2)
         y = constrain(y, mesh, split, y.placements)
     y = layers.rms_norm(y * layers.silu(z), params["norm_w"])
-    return layers.dense(y, params["w_out"]), state, xBC_in
+    return layers.dense(y, params["w_out"]), state, conv_state
 
 
 def mamba2_block(params: dict, x, d_model: int, s: SSMConfig,
@@ -366,8 +434,8 @@ def mamba2_prefill(params: dict, x, d_model: int, s: SSMConfig,
     """Full-sequence Mamba2 that also returns the decode state
     {'conv': last width-1 projected inputs, 'ssm': final state}, from one
     projection (the reference projects a second time for the conv state)."""
-    y, state, xBC = _block(params, x, d_model, s, None, impl)
-    return y, {"conv": xBC[:, -(s.conv_width - 1):], "ssm": state}
+    y, state, conv = _block(params, x, d_model, s, None, impl)
+    return y, {"conv": conv, "ssm": state}
 
 
 def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,

@@ -290,15 +290,33 @@ def _per_layer(stack: dict) -> list:
     mesh: a DTensor stack's per-layer select made, in the backward, a
     zero stack holding each layer's gradient, which autograd held until
     it summed them, 225 of a 321 GB peak; unbound, the layers' unreduced
-    gradients, partial sums over the data axes, were 172 of 242 GB.)"""
+    gradients, partial sums over the data axes, were 172 of 242 GB.) A
+    leaf sharded along its layer dim (the specs' fallback rule shards the
+    largest dim of an (L, nh) leaf with L > nh, such as Mamba2's
+    ``A_log``), which DTensor cannot unbind, is first gathered whole on the
+    mesh dims that shard it (``_unbindable``)."""
     n = _depth(stack)
     leaves = tree_leaves(stack)
     if not is_dtensor(leaves[0]):
         return [lane_slice(stack, i) for i in range(n)]
     from repro_torch.distributed.sharding import constrain
     cols = [[constrain(x, x.device_mesh, x.placements)
-             for x in torch.unbind(t, 0)] for t in leaves]
+             for x in torch.unbind(_unbindable(t), 0)] for t in leaves]
     return [tree_unflatten(stack, [c[i] for c in cols]) for i in range(n)]
+
+
+def _unbindable(t):
+    """A stacked DTensor leaf ``t`` with its layer dim (0) whole: the mesh
+    dims that shard it replicate it instead, its gradient going back to
+    ``t``'s placements (``sharding.constrain``); ``t`` itself where none
+    does. Such a leaf is a few KB (an (L, nh) vector stack)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if Shard(0) not in t.placements:
+        return t
+    from repro_torch.distributed.sharding import constrain
+    return constrain(t, t.device_mesh,
+                     [Replicate() if p == Shard(0) else p
+                      for p in t.placements], t.placements)
 
 
 def _depth(tree) -> int:

@@ -34,7 +34,8 @@ DTensor issues for them among those, and the kernel leaves count their
 c10d and functional collective as a ``CollectiveOp`` (kind, result bytes,
 group size) with the DTensor op that caused it, and ``LiveBytes`` the peak
 of the bytes held by the tensors the step makes, on any device (``meta``
-included), beyond those of its arguments.
+included), beyond those of its arguments, and which of them hold the
+step's outputs.
 """
 from __future__ import annotations
 
@@ -298,13 +299,17 @@ class LiveBytes(TorchDispatchMode):
     tracked from each op's outputs until the last tensor on a storage dies
     (the outputs of views and in-place ops share a storage already counted,
     or an argument's). Works on ``meta`` tensors, which have storages of
-    their sizes and no memory."""
+    their sizes and no memory. It keeps the order in which the storages
+    were made and freed, so that ``split`` can tell the storages a step
+    returns from its temporaries afterwards."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
-        self._held: Dict[int, list] = {}   # storage -> [bytes, tensors]
+        self._held: Dict[int, list] = {}   # storage -> [bytes, tensors, id]
+        self._sizes: List[int] = []        # bytes, by storage id
+        self._events: List[int] = []       # id + 1 made, -(id + 1) freed
 
     def _release(self, key: int) -> None:
         entry = self._held.get(key)
@@ -313,6 +318,7 @@ class LiveBytes(TorchDispatchMode):
         entry[1] -= 1
         if entry[1] == 0:
             self.live -= entry[0]
+            self._events.append(-(entry[2] + 1))
             del self._held[key]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -327,12 +333,34 @@ class LiveBytes(TorchDispatchMode):
                 continue                    # an argument's storage
             entry = self._held.get(key)
             if entry is None:
-                entry = self._held[key] = [t.untyped_storage().nbytes(), 0]
-                self.live += entry[0]
+                nbytes = t.untyped_storage().nbytes()
+                entry = self._held[key] = [nbytes, 0, len(self._sizes)]
+                self._sizes.append(nbytes)
+                self._events.append(len(self._sizes))
+                self.live += nbytes
                 self.peak = max(self.peak, self.live)
             entry[1] += 1
             weakref.finalize(t, self._release, key)
         return out
+
+    def split(self, outputs) -> tuple:
+        """(output bytes, temporaries' peak) of a finished run that
+        returned ``outputs`` (a tree of tensors; a DTensor's local shard
+        counts): the bytes of the storages the run made that hold them
+        (an argument's storage, which a step updates in place, is not
+        one), and the peak of the live bytes of every other storage, as
+        XLA's memory analysis tells its ``output_size_in_bytes`` from its
+        ``temp_size_in_bytes``. ``peak`` is their sum's peak."""
+        keys = {_local(t).untyped_storage()._cdata
+                for t in _tensors(outputs)}
+        ids = {self._held[k][2] for k in keys if k in self._held}
+        live = peak = 0
+        for e in self._events:
+            i = abs(e) - 1
+            if i not in ids:
+                live += self._sizes[i] if e > 0 else -self._sizes[i]
+                peak = max(peak, live)
+        return sum(self._sizes[i] for i in ids), peak
 
 
 def _tensors(tree) -> list:
@@ -353,7 +381,12 @@ class StepCounts:
     the call (0 off the card) and the bytes of the arguments the step
     reads (``unread_args``: the positions, among the arguments' tensors,
     of those it never reads, which the bytes leave out, as ``jax.jit``
-    leaves out an argument its step does not use)."""
+    leaves out an argument its step does not use). Of the storages the step
+    makes (``LiveBytes``), ``live_peak_bytes`` is the peak of all of them,
+    what a device's allocator holds above the arguments; ``output_bytes``
+    those that hold what the step returns, and ``temp_peak_bytes`` the peak
+    of every other one: XLA's ``output_size_in_bytes`` and
+    ``temp_size_in_bytes``, which the reference's dry-run reads."""
     flops: int = 0
     bytes: int = 0
     bytes_by_op: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -367,6 +400,8 @@ class StepCounts:
     collective_causes: List[str] = dataclasses.field(default_factory=list)
     collective_groups: List[tuple] = dataclasses.field(default_factory=list)
     live_peak_bytes: int = 0
+    output_bytes: int = 0
+    temp_peak_bytes: int = 0
 
 
 def _contiguous(out):
@@ -512,8 +547,9 @@ def _local_bytes(tree) -> int:
 
 def count_step(fn, *args) -> StepCounts:
     """Run ``fn(*args)`` once and count its FLOPs, bytes, collectives and
-    live bytes, per device (see the module docstring). The step runs for
-    real: a step that updates state in place does so."""
+    live bytes (in all, its outputs' and its temporaries' peak), per device
+    (see the module docstring). The step runs for real: a step that updates
+    state in place does so."""
     counts = StepCounts()
     dev = _first_device(args)
     on_card = dev is not None and dev.type == "cuda"
@@ -528,7 +564,7 @@ def count_step(fn, *args) -> StepCounts:
     with _kernel_leaves(counts, byte_mode.read), \
             _uncounted_shape_propagation(), \
             flop_mode, byte_mode, live, coll:
-        fn(*args)
+        out = fn(*args)
     leaves = _tensors(args)
     read = [_local(t).untyped_storage()._cdata in byte_mode.read
             for t in leaves]
@@ -537,6 +573,7 @@ def count_step(fn, *args) -> StepCounts:
     counts.collectives, counts.collective_causes = coll.ops, coll.causes
     counts.collective_groups = coll.groups
     counts.live_peak_bytes = live.peak
+    counts.output_bytes, counts.temp_peak_bytes = live.split(out)
     if on_card:
         torch.cuda.synchronize(dev)
         counts.peak_bytes = torch.cuda.max_memory_allocated(dev) - base

@@ -421,6 +421,84 @@ out["ssd_split_heads_block_err"] = max(
 out["ssd_split_heads_grad_rel"] = max(
     float((g.full_tensor() - w).abs().max() / w.abs().max())
     for g, w in zip(got, want))
+# an attention block of 6 query heads on 2 KV heads under a "model" axis
+# of 4 (which divides neither): at batch 2 each rank attends with its share
+# of 2 query heads (rank 1's span both KV groups, rank 3's are padding), at
+# batch 4 each rank attends with every head for its own row; the output and
+# the gradients of x and every weight by torch.autograd against the same
+# block unsharded, and at batch 2 a prefill into a KV cache and a decode
+# step
+m4 = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+rep4 = lambda t: sharding.local_shard(  # noqa: E731
+    t, m4, sharding.dim_placements(m4))
+ap6 = attention.init_attention(gen, 24, 6, 2, 8, torch.float32)
+kw6 = dict(num_heads=6, num_kv_heads=2, head_dim=8, rope_theta=1e4,
+           impl="kernel")
+for B in (2, 4):
+    x6 = torch.randn(B, 12, 24, generator=gen)
+    gy6 = torch.randn(B, 12, 24, generator=gen)
+    pos6 = torch.arange(12)[None].expand(B, 12)
+    plain6 = {k: w.clone().requires_grad_(True) for k, w in ap6.items()}
+    xp6 = x6.clone().requires_grad_(True)
+    want, _ = attention.attention_block(plain6, xp6, positions=pos6, **kw6)
+    wg = torch.autograd.grad((want * gy6).sum(), [*plain6.values(), xp6])
+    dp6 = {k: rep4(w).requires_grad_(True) for k, w in ap6.items()}
+    xd6 = rep4(x6).requires_grad_(True)
+    got, _ = attention.attention_block(dp6, xd6, positions=rep4(pos6), **kw6)
+    gg = torch.autograd.grad((got * rep4(gy6)).sum(), [*dp6.values(), xd6])
+    out[f"heads6_b{B}_err"] = float((got.full_tensor() - want).abs().max())
+    out[f"heads6_b{B}_grad_rel"] = max(
+        float((g.full_tensor() - w).abs().max() / w.abs().max())
+        for g, w in zip(gg, wg))
+cache6 = attention.init_kv_cache(2, 16, 2, 8, torch.float32)
+dcache6 = sharding.distribute_local(
+    attention.init_kv_cache(2, 16, 2, 8, torch.float32), m4,
+    sharding.batch_shardings(m4, cache6, 2))
+errs = []
+with torch.no_grad():
+    for S, p0 in ((12, 0), (1, 12)):
+        x6 = torch.randn(2, S, 24, generator=gen)
+        pos6 = p0 + torch.arange(S)[None].expand(2, S)
+        want, _ = attention.attention_block(ap6, x6, positions=pos6,
+                                            kv_cache=cache6, **kw6)
+        got, _ = attention.attention_block(
+            {k: rep4(w) for k, w in ap6.items()}, rep4(x6),
+            positions=rep4(pos6), kv_cache=dcache6, **kw6)
+        errs.append(float((got.full_tensor() - want).abs().max()))
+errs.append(float((dcache6["k"].full_tensor() - cache6["k"]).abs().max()))
+out["heads6_cache_errs"] = errs
+# a Mamba2 model of 10 layers and 8 heads on the (2, 2) mesh: the specs'
+# fallback rule shards its (10, 8) leaves A_log, dt_bias and D along their
+# layer dim; its loss and gradients by torch.autograd against the same
+# model unsharded by torch.func
+import dataclasses
+from repro_torch import configs
+from repro_torch.launch.train import mesh_grads
+from repro_torch.models.model import Model
+from repro_torch.models.transformer import ParallelCtx
+mcfg = dataclasses.replace(
+    configs.get("mamba2-130m").reduced(), num_layers=10, d_model=32,
+    ssm=SSMConfig(state_dim=8, head_dim=8, expand=2, chunk_size=8))
+mplain = Model(mcfg, device="cpu")
+mparams = mplain.init(torch.Generator().manual_seed(1))
+mbatch = {k: torch.randint(0, mcfg.vocab_size, (4, 16), generator=gen)
+          for k in ("tokens", "labels")}
+want_loss = float(mplain.loss(mparams, mbatch)[0])
+want_g = torch.func.grad(lambda p: mplain.loss(p, mbatch)[0])(mparams)
+mshard = sharding.param_shardings(mesh, mparams)
+out["layers_sharded"] = [p.is_shard(0) for p in mshard["blocks"]["mamba"][
+    "A_log"]]
+smodel = Model(mcfg, ParallelCtx(mesh=mesh), device="cpu")
+got_g, metrics = mesh_grads(
+    smodel.loss, sharding.distribute_local(mparams, mesh, mshard),
+    sharding.distribute_local(mbatch, mesh, sharding.batch_shardings(
+        mesh, mbatch, 4)))
+from repro_torch.core import packing
+out["layers_loss_err"] = abs(float(metrics["loss"].full_tensor())
+                             - want_loss)
+out["layers_grad_rel"] = max(
+    float((a.full_tensor() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    for a, b in zip(packing.tree_leaves(got_g), packing.tree_leaves(want_g)))
 # the collective counter on hand-built collectives
 from torch.distributed.tensor import Partial, Replicate, Shard
 cc = CollectiveCounter()
@@ -525,6 +603,42 @@ def test_mamba2_block_with_heads_model_does_not_divide(gloo4):
         "ssd_split_heads_block_err"]
     assert gloo4["ssd_split_heads_grad_rel"] < 1e-5, gloo4[
         "ssd_split_heads_grad_rel"]
+
+
+@pytest.mark.parametrize("batch", [2, 4])
+def test_attention_with_heads_model_does_not_divide(gloo4, batch):
+    """An attention block of 6 query heads on 2 KV heads under a "model"
+    axis of 4 on a (1, 4) mesh: at batch 2 each rank attends with its own
+    share of 2 query heads (``attention._head_share``; rank 1's read both
+    KV heads, rank 3's are padding), at batch 4 with every head for its own
+    row (``attention._rows_over_model``). The output within 1e-5 of the
+    unsharded block's, and the gradients of x and every weight by
+    ``torch.autograd`` within 1e-5 of each one's largest entry, in f32
+    (C24)."""
+    assert gloo4[f"heads6_b{batch}_err"] < 1e-5, gloo4[
+        f"heads6_b{batch}_err"]
+    assert gloo4[f"heads6_b{batch}_grad_rel"] < 1e-5, gloo4[
+        f"heads6_b{batch}_grad_rel"]
+
+
+def test_attention_with_heads_model_does_not_divide_fills_a_cache(gloo4):
+    """The same block at batch 2 prefills a ring KV cache (replicated over
+    "model": 4 ranks do not divide its 2 KV heads) and takes a decode step
+    from it: both outputs and the cache within 1e-5 of the unsharded
+    block's."""
+    assert max(gloo4["heads6_cache_errs"]) < 1e-5, gloo4["heads6_cache_errs"]
+
+
+def test_layer_dim_sharded_leaf_on_a_mesh(gloo4):
+    """A Mamba2 model of 10 layers and 8 heads on the (2, 2) mesh, whose
+    (10, 8) leaves the specs shard along their layer dim over "model": its
+    loss within 1e-5 of the unsharded model's and its gradients by
+    ``torch.autograd`` within 1e-5 of each leaf's largest entry
+    (``transformer._unbindable``; DTensor refused the layers' unbind,
+    C23)."""
+    assert gloo4["layers_sharded"] == [False, True]
+    assert gloo4["layers_loss_err"] < 1e-5, gloo4["layers_loss_err"]
+    assert gloo4["layers_grad_rel"] < 1e-5, gloo4["layers_grad_rel"]
 
 
 def test_hybrid_model_serves_on_a_mesh(gloo4):

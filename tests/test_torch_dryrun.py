@@ -77,6 +77,7 @@ def cell():
             "stablelm-1.6b", "train_4k", mesh, overrides=OVERRIDES)
         return dict(counts=c, kind=kind, n_tokens=n_tokens,
                     spec_bytes=dryrun.spec_local_bytes(specs, mesh),
+                    batch_bytes=dryrun.spec_local_bytes(specs[2], mesh),
                     by_axis=dryrun.coll_by_axis(c, mesh))
 
 
@@ -106,6 +107,37 @@ def test_arg_bytes_match_reference(ref, cell, vlm_prefill):
     assert cell["counts"].arg_bytes + scalars == ref["arg_bytes"]
     assert cell["spec_bytes"] == cell["counts"].arg_bytes
     assert vlm_prefill[0] == vlm_prefill[1] == ref["vlm_prefill_arg_bytes"]
+
+
+def test_train_step_outputs_are_its_new_params_and_moments(cell):
+    """A train step's outputs (``StepCounts.output_bytes``, the dry-run's
+    ``out_gb_dev``) are its new params and AdamW moments, as many bytes a
+    rank as the arguments but for the batch, and a few scalars (the step
+    count and the metrics); its temporaries' peak (``temp_gb_dev``, XLA's
+    ``temp_size_in_bytes``) leaves them out, and the whole peak, what a
+    card's allocator holds, takes both."""
+    c = cell["counts"]
+    state = c.arg_bytes - cell["batch_bytes"]
+    assert 0 <= c.output_bytes - state <= 64, (c.output_bytes, state)
+    assert 0 < c.temp_peak_bytes < c.live_peak_bytes
+    assert c.live_peak_bytes <= c.temp_peak_bytes + c.output_bytes
+
+
+def test_prefill_row_reads_fit_from_its_whole_peak(tmp_path):
+    """A prefill cell's row (and its JSON file) carries the whole peak
+    (``peak_gb_dev``, ``live_peak_bytes``), the one a card's allocator
+    holds and the one whether the cell fits is read from: above the
+    temporaries' peak by the KV cache made before the layers run, and at
+    most temporaries and outputs together."""
+    row = dryrun.run_cell("stablelm-1.6b", "prefill_32k", False,
+                          str(tmp_path), overrides=dict(OVERRIDES,
+                                                        num_layers=1))
+    assert "error" not in row, row
+    temp, out, peak = (row[k] for k in ("temp_gb_dev", "out_gb_dev",
+                                        "peak_gb_dev"))
+    assert 0 < temp < peak <= temp + out, (temp, out, peak)
+    (path,) = tmp_path.glob("stablelm-1.6b__prefill_32k__*.json")
+    assert json.loads(path.read_text())["peak_gb_dev"] == peak
 
 
 def test_pod_axis_carries_collectives(cell):

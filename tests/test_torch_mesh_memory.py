@@ -1,23 +1,37 @@
-"""The memory of the port's sharded training step against the reference's
-(ROADMAP C18), counted on ``meta`` in a ``"fake"`` process group of 8
-ranks on a (1, 8) ("data", "model") mesh, and B3's backward by query
-slices on the CPU.
+"""The memory and FLOPs of the port's sharded steps against the
+reference's (ROADMAP C18, C22-C25), counted on ``meta`` in a ``"fake"``
+process group of 8 ranks on a (1, 8) ("data", "model") mesh, and B3's
+backward by query slices on the CPU.
 
 The reference's numbers come from one child python with 8 XLA host
 devices, which compiles the same cells (``lower_cell(...).compile()``)
-and reads ``memory_analysis().temp_size_in_bytes`` and the FLOPs of its
-trip-count-aware HLO analyzer (``roofline.hlo_costs.analyze_hlo``, the
-reference dry-run's); the port's are ``count_cell``'s ``live_peak_bytes``
-and ``flops``, the dry-run's ``temp_gb_dev`` and FLOPs. The cells, all
-at train_4k:
+and reads ``memory_analysis()``'s ``temp_size_in_bytes`` and
+``output_size_in_bytes`` (less ``alias_size_in_bytes``) and the FLOPs of
+its trip-count-aware HLO analyzer (``roofline.hlo_costs.analyze_hlo``,
+the reference dry-run's); the port's are ``count_cell``'s
+``temp_peak_bytes`` (or ``live_peak_bytes``, outputs included, where a
+test says so), ``output_bytes`` and ``flops``: the dry-run's
+``temp_gb_dev``, ``out_gb_dev`` and FLOPs. The cells, at train_4k unless
+named otherwise:
   * reduced StableLM-2, per-layer growth, 8 and 16 layers, 8 heads (over
     "model"): the block input that remat keeps, and from 8 layers on the
     norms' (L, d) leaves sharded over "model" by the fallback rule;
   * reduced StableLM-2, one layer with 4 heads, which "model" does not
-    divide, so that the attention is whole on every rank (B3's backward);
+    divide (each rank attends with every head for its share of the batch,
+    C24; B3's backward is held at the whole batch's shape on its own), and
+    one at prefill_32k with 24 query heads on 12
+    KV heads (a cache is written: each rank attends with its share of the
+    heads, and rank 0's, heads 0-2, span two KV groups);
+  * reduced StableLM-2, 2 layers, at prefill_32k: its logits and KV cache
+    are the step's outputs (C18);
   * reduced Mamba2-130m, 8 layers, shaped as the full model is on its
     16-wide "model" axis: 12 heads and an in-projection 428 wide, which
-    "model" does not divide, a width of 96 that it does (C22).
+    "model" does not divide, a width of 96 that it does (C22);
+  * reduced Zamba2-7B, 2 layers, at prefill_32k (the in-projection's
+    blocks each split over "model", C18) and at train_4k (port only: each
+    product's local shapes, C25);
+  * reduced Mamba2-130m, 16 layers and 12 heads (port only): its (16, 12)
+    leaves are sharded along their layer dim (C23).
 """
 import dataclasses
 import json
@@ -34,21 +48,40 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import attention, transformer
+from repro_torch.roofline import counting
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESH = ((1, 8), ("data", "model"))
 WIDTHS = dict(d_model=128, d_ff=256, vocab_size=512)
 HEADS_SPLIT = dict(WIDTHS, num_heads=8, num_kv_heads=8, head_dim=16)
 HEADS_WHOLE = dict(WIDTHS, num_heads=4, num_kv_heads=4, head_dim=32)
+HEADS_GQA = dict(WIDTHS, num_heads=24, num_kv_heads=12, head_dim=16)
 DEPTHS = (8, 16)
-# name -> (arch, overrides); an "ssm" override is SSMConfig's fields
-CELLS = {f"split{L}": ("stablelm-1.6b", dict(HEADS_SPLIT, num_layers=L))
-         for L in DEPTHS}
-CELLS["whole1"] = ("stablelm-1.6b", dict(HEADS_WHOLE, num_layers=1))
+SSM = dict(state_dim=16, head_dim=16, expand=2, conv_width=4, chunk_size=128)
+# a reduced Zamba2-7B whose in-projection's blocks (z and x 256 wide, B and
+# C 16, dt 16 heads) each divide over 8 "model" ranks, 560 wide in all
+ZAMBA2 = dict(num_layers=2, d_model=128, num_heads=8, num_kv_heads=8,
+              head_dim=16, d_ff=384, vocab_size=512, hybrid_attn_period=2,
+              ssm=SSM)
+ZAMBA2_WIDTHS = (256, 560)              # d_in, d_in + ch + nh
+# name -> (arch, overrides, shape); an "ssm" override is SSMConfig's fields
+CELLS = {f"split{L}": ("stablelm-1.6b", dict(HEADS_SPLIT, num_layers=L),
+                       "train_4k") for L in DEPTHS}
+CELLS["whole1"] = ("stablelm-1.6b", dict(HEADS_WHOLE, num_layers=1),
+                   "train_4k")
+CELLS["gqa1"] = ("stablelm-1.6b", dict(HEADS_GQA, num_layers=1),
+                 "prefill_32k")
+CELLS["prefill"] = ("stablelm-1.6b", dict(HEADS_SPLIT, num_layers=2),
+                    "prefill_32k")
 CELLS["mamba2"] = ("mamba2-130m", dict(
-    num_layers=8, d_model=96, vocab_size=512,
-    ssm=dict(state_dim=16, head_dim=16, expand=2, conv_width=4,
-             chunk_size=128)))
+    num_layers=8, d_model=96, vocab_size=512, ssm=SSM), "train_4k")
+CELLS["zamba2"] = ("zamba2-7b", ZAMBA2, "prefill_32k")
+# counted by the port alone
+PORT_CELLS = {
+    "zamba2_train": ("zamba2-7b", ZAMBA2, "train_4k"),
+    **{f"mamba16_{shape}": ("mamba2-130m", dict(
+        num_layers=16, d_model=96, vocab_size=512, ssm=SSM), shape)
+       for shape in ("train_4k", "prefill_32k")}}
 
 REFERENCE = """
 import json, sys
@@ -59,28 +92,49 @@ from repro.launch.mesh import make_mesh
 from repro.roofline.hlo_costs import analyze_hlo
 mesh = make_mesh(MESH[0], MESH[1])
 out = {}
-for name, (arch, over) in CELLS.items():
+for name, (arch, over, shape) in CELLS.items():
     if "ssm" in over:
         over = dict(over, ssm=SSMConfig(**over["ssm"]))
     with mesh:
-        lowered, _, _, _ = dryrun.lower_cell(arch, "train_4k", mesh,
+        lowered, _, _, _ = dryrun.lower_cell(arch, shape, mesh,
                                              overrides=over)
         c = lowered.compile()
     m = c.memory_analysis()
     out[name] = {"temp": m.temp_size_in_bytes,
                  "arg": m.argument_size_in_bytes,
+                 "out": m.output_size_in_bytes - m.alias_size_in_bytes,
                  "flops": analyze_hlo(c.as_text()).flops}
 print(json.dumps(out))
 """
 
 
-def _count(name):
-    arch, over = CELLS[name]
+def _count(name, seen=None):
+    """The cell's counts; with ``seen`` (a list), each matrix product a
+    rank runs (``aten.mm``, ``aten.addmm``) is appended to it as its
+    operands' local shapes, and each ``aten.cat`` as its result's."""
+    arch, over, shape = {**CELLS, **PORT_CELLS}[name]
     if "ssm" in over:
         over = dict(over, ssm=SSMConfig(**over["ssm"]))
-    with dryrun.fake_world(8):
-        mesh = make_mesh(*MESH, device_type="cpu")
-        return dryrun.count_cell(arch, "train_4k", mesh, overrides=over)[0]
+    mp = pytest.MonkeyPatch()
+    if seen is not None:
+        real = counting._ByteMode.__torch_dispatch__
+        aten = torch.ops.aten
+        mm = {aten.mm.default, aten.addmm.default}
+
+        def spy(self, func, types, args=(), kwargs=None):
+            out = real(self, func, types, args, kwargs)
+            if func in mm and out is not NotImplemented:
+                seen.append(("mm", [tuple(a.shape) for a in args[-2:]]))
+            if func.overloadpacket is aten.cat and out is not NotImplemented:
+                seen.append(("cat", [tuple(out.shape)]))
+            return out
+        mp.setattr(counting._ByteMode, "__torch_dispatch__", spy)
+    try:
+        with dryrun.fake_world(8):
+            mesh = make_mesh(*MESH, device_type="cpu")
+            return dryrun.count_cell(arch, shape, mesh, overrides=over)[0]
+    finally:
+        mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +168,12 @@ def counts():
                 for t, g in zip(inputs, out[2:]) if g is not None)
             return out
 
-        port = {name: _count(name) for name in ("whole1", "mamba2")}
+        port = {name: _count(name) for name in (
+            "whole1", "gqa1", "prefill", "mamba2", "mamba16_train_4k",
+            "mamba16_prefill_32k")}
+        for name in ("zamba2", "zamba2_train"):
+            port[name + "_ops"] = []
+            port[name] = _count(name, port[name + "_ops"])
         mp = pytest.MonkeyPatch()
         mp.setattr(ops, "BACKWARD_BLOCK_BYTES", 1 << 50)
         mp.setattr(transformer._Recompute, "backward", staticmethod(backward))
@@ -153,12 +212,33 @@ def test_temp_growth_per_layer_within_twice_the_reference(counts):
 
 
 def test_one_layer_whole_attention_within_twice_the_reference(counts):
-    """With the attention whole on every rank, one layer's temporaries
-    are at most twice the reference's: B3's backward holds one query
-    slice's scores at a time (it held every key chunk's scores of the
-    layer: 200.9 GB against the reference's 24-27)."""
+    """B3 over the whole of whole1's layer, every head of all 256
+    sequences as a rank took it before the attention was split over
+    "model" (C24), holds at most twice the reference's temp of the layer,
+    and at most 20 of its backward's f32 score blocks: the backward holds
+    one query slice's scores at a time (about 17 blocks at its peak here;
+    with every key chunk's scores held at once, 198.9 GB, and the layer
+    200.9 GB, against the reference's 24-27). Counted on ``meta``, the
+    forward and the backward of ``ops.flash_attention`` alone. The cell
+    itself, where each rank now attends with every head for its 32 rows
+    (``attention._rows_over_model``), is within twice the reference's as
+    well."""
     port, reference = counts
-    assert port["whole1"].live_peak_bytes <= 2 * reference["whole1"]["temp"]
+    limit = 2 * reference["whole1"]["temp"]
+    B, S, H, D = 256, 4096, HEADS_WHOLE["num_heads"], HEADS_WHOLE["head_dim"]
+
+    def step(q, k, v, g):
+        out = ops.flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(out, (q, k, v), g)
+    q, k, v, g = (torch.empty((B, S, H, D), dtype=torch.bfloat16,
+                              device="meta", requires_grad=i < 3)
+                  for i in range(4))
+    b3 = counting.count_step(step, q, k, v, g)
+    block = B * H * ops.backward_rows(B, S, H, 1024) * 1024 * 4
+    assert b3.leaf_calls == {"flash_attention": 1}
+    assert b3.live_peak_bytes <= min(limit, 20 * block), (
+        b3.live_peak_bytes, limit, block)
+    assert port["whole1"].live_peak_bytes <= limit
     # the forward and the recompute in the backward
     assert port["whole1"].leaf_calls == {"flash_attention": 2}
 
@@ -178,6 +258,90 @@ def test_mamba2_flops_and_temp_within_twice_the_reference(counts):
     assert got.live_peak_bytes <= 2 * want["temp"], (got.live_peak_bytes,
                                                      want["temp"])
     assert got.arg_bytes + 8 == want["arg"]
+
+
+@pytest.mark.parametrize("name", ["whole1", "gqa1"])
+def test_attention_heads_shared_where_model_does_not_divide_them(counts,
+                                                                 name):
+    """With query heads that "model" does not divide, the attention is
+    split over "model" all the same: whole1's train step (4 heads on 8
+    ranks) by its batch (``attention._rows_over_model``), gqa1's prefill
+    (24 query heads on 12 KV heads) by shares of ceil(24 / 8) query heads,
+    rank 0's spanning two KV groups (``attention._head_share``). Each
+    cell's FLOPs are at most 1.25 times the reference's and its temp at
+    most twice it; with every rank attending with all the heads, whole1
+    counted 6.2 times the reference's FLOPs (C24)."""
+    port, reference = counts
+    got, want = port[name], reference[name]
+    assert got.flops <= 1.25 * want["flops"], (got.flops, want["flops"])
+    assert got.temp_peak_bytes <= 2 * want["temp"], (got.temp_peak_bytes,
+                                                     want["temp"])
+
+
+def test_prefill_outputs_counted_apart_from_temporaries(counts):
+    """The reduced StableLM-2's prefill returns its logits and the KV cache
+    it made: their bytes are the count's ``output_bytes``, equal to the
+    reference's output bytes (less those aliased to its arguments, and
+    but for the table of the output tuple's pointers), and
+    the peak of every other storage (``temp_peak_bytes``, the dry-run's
+    ``temp_gb_dev``) is within twice the reference's temp. The whole peak
+    (``live_peak_bytes``), what a card's allocator would hold, is above it:
+    the cache is made before the layers run (C18)."""
+    port, reference = counts
+    got, want = port["prefill"], reference["prefill"]
+    # XLA's output is a tuple: beside its 5 buffers (the logits and the
+    # cache's k, v, len and pos) it counts a table of their 8-byte pointers
+    assert got.output_bytes + 5 * 8 == want["out"], (got.output_bytes,
+                                                     want["out"])
+    assert got.temp_peak_bytes <= 2 * want["temp"], (got.temp_peak_bytes,
+                                                     want["temp"])
+    assert got.live_peak_bytes > got.temp_peak_bytes
+
+
+def test_zamba2_in_projection_kept_split(counts):
+    """The reduced Zamba2's prefill gathers no whole in-projection: one
+    product for each of its column blocks (z, x, B, C, dt), each split over
+    "model" (``ssm._project_on_mesh``), where one 560-wide product cut into
+    z, xBC and dt off its shard edges made DTensor gather its (B, 32768,
+    560) result whole (``aten.cat``; the weight itself is gathered, and so
+    are the conv state's last 3 rows). Its temp is within twice the
+    reference's (C18)."""
+    port, reference = counts
+    got, want = port["zamba2"], reference["zamba2"]
+    cats = [shapes[0] for op, shapes in port["zamba2_ops"] if op == "cat"]
+    rows = [s for s in cats if len(s) == 3 and s[1] == 32768]
+    assert not [s for s in rows if s[-1] in ZAMBA2_WIDTHS], rows
+    assert got.temp_peak_bytes <= 2 * want["temp"], (got.temp_peak_bytes,
+                                                     want["temp"])
+
+
+def test_zamba2_products_split_over_model(counts):
+    """Every matrix product of the reduced Zamba2's train step runs on its
+    split over "model": no operand on a rank is as wide as the whole
+    in-projection (560) or its z and x blocks (256). Cut from one product,
+    the in-projection's weight gradient was taken from its whole (B, S,
+    560) gradient: on every rank under the strategy torch 2.11's DTensor
+    picks, along a batch split under 2.13's (C25)."""
+    port, _ = counts
+    mms = [shapes for op, shapes in port["zamba2_train_ops"] if op == "mm"]
+    assert mms
+    wide = [s for s in mms if set(ZAMBA2_WIDTHS) & {d for t in s for d in t}]
+    assert not wide, wide
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_stacked_leaf_sharded_along_its_layers(counts, shape):
+    """A reduced Mamba2 of 16 layers and 12 heads counts on (1, 8): its
+    (16, 12) leaves ``A_log``, ``dt_bias`` and ``D``, which the specs'
+    fallback rule shards along their layer dim, are gathered whole before
+    the layers are unbound (``transformer._unbindable``; DTensor refused
+    the unbind, C23). Its train step does at most twice the work of the
+    8-layer cell's (the head and the embedding counted once)."""
+    port, _ = counts
+    c = port[f"mamba16_{shape}"]
+    assert c.flops > 0 and c.temp_peak_bytes > 0
+    if shape == "train_4k":
+        assert c.flops <= 2 * port["mamba2"].flops
 
 
 def test_layer_weight_gradients_reduced_at_their_layer(counts):
@@ -237,12 +401,14 @@ def test_b3_backward_by_query_slices(monkeypatch, causal, window):
 
 
 def test_backward_rows_at_the_qwen2_vl_train_cell():
-    """qwen2-vl-7b at train_4k on 16 x 16: 16 sequences a rank, its 28
-    query heads whole on every rank (16 does not divide them), key chunks
-    of 1024: 512 query rows a slice, a 0.94 GB f32 score block. A short
-    sequence that fits takes one slice."""
+    """qwen2-vl-7b's layer at train_4k with 16 sequences of 4096 on a
+    rank and its 28 query heads whole, as 16 x 16 gave it before the
+    attention was split over "model" (C24), key chunks of 1024: 512 query
+    rows a slice, a 0.94 GB f32 score block. Split, its one sequence a
+    rank takes one slice, as does a short sequence that fits."""
     rows = ops.backward_rows(16, 4096, 28, 1024)
     assert rows == 512
     assert 16 * 28 * rows * 1024 * 4 <= ops.BACKWARD_BLOCK_BYTES
+    assert ops.backward_rows(1, 4096, 28, 1024) == 4096
     assert ops.backward_rows(2, 512, 4, 512) == 512
 
