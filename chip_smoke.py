@@ -152,19 +152,26 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    [serve-moe] prefill under expert parallelism (f32 and bf16 combine):
    logits bit-equal to ``ParallelCtx()``'s, B3 14 launches each held to
    its plain version, the card's collectives equal to the same step's on
-   ``meta``; [dist-train] 3 AdamW steps of full-width StableLM-2 (4
-   layers) with FSDP placements, bit-equal to the same steps unsharded by
+   ``meta``, then 8 decode steps under EP routed row by row, bit-equal;
+   [dist-ssm] full mamba2-130m, [serve-ssm]'s longest prompt and 8
+   decode steps with params and cache as DTensors (B4 and the state
+   update under ``local_map``), logits and final cache bit-equal to
+   ``ParallelCtx()``'s, B4 24 launches each held to its plain version on
+   its served inputs, the card's peak beside the meta twins';
+   [dist-train] 3 AdamW steps of full-width StableLM-2 (4 layers) with
+   FSDP placements, bit-equal to the same steps unsharded by
    ``torch.autograd`` (or the first differing op named and held within
    1e-5), step 0's gradients in f32 compute within 1e-5 of each leaf's
    largest entry of the unsharded ``torch.func`` route's and bit-equal
    to them in bf16 compute, 24 B3 launches, ``compressed_psum`` and
    ``allgather_matmul`` at world size 1, the peak beside the meta
-   count's whole peak (outputs included); then [dryrun]: seven full-size
+   count's whole peak (outputs included); then [dryrun]: ten full-size
    production cells, each a
    ``python -m repro_torch.launch.dryrun`` child, all started together:
    every cell OK, argument bytes two ways equal, pod-axis bytes on the
-   multi-pod cell, each cell's temp (outputs left out) within twice the
-   reference's and its TFLOP within 1.25 times, its outputs' bytes
+   multi-pod cells, each cell's temp (outputs left out) within twice the
+   reference's and its TFLOP within 1.25 times, the four decode cells'
+   collectives within twice the reference's, its outputs' bytes
    logged;
 10. [examples] the four entry scripts ``examples/torch_*.py`` on the card
    as child processes at the reference's CI sizes (quickstart and
@@ -4133,7 +4140,8 @@ def schedule_profiles(profiles: dict, hbm: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the distributed layer ([dist-ep], [dist-train], [dryrun])
+# phase 9: the distributed layer ([dist-ep], [dist-ssm], [dist-train],
+# [dryrun])
 # ---------------------------------------------------------------------------
 
 # [dist-train]: full-width StableLM-2 1.6B at [train-lm]'s depth and one
@@ -4151,6 +4159,13 @@ DIST_TRAIN_STEPS = 3
 DIST_TRAIN_RTOL = 1e-5
 DIST_TRAIN_BF16_RTOL = 0.0
 DIST_TRAIN_LR = 1e-4
+# [dist-ssm] and [dist-ep]'s decode: greedy decode steps after the prefill,
+# the tokens taken from the unsharded route so that both routes see the
+# same inputs; the sharded logits and cache are held bit-equal
+# (DIST_DECODE_ATOL) to the unsharded ones: on one rank the mesh routes run
+# the same kernels on the same local tensors
+DIST_DECODE_STEPS = 8
+DIST_DECODE_ATOL = 0.0
 # [dryrun]: full-size production cells, each counted on meta in a fake
 # process group by its own ``python -m repro_torch.launch.dryrun`` child,
 # all started together
@@ -4160,28 +4175,52 @@ DRYRUN_CELLS = (("llama3-405b", "train_4k", "single"),
                 ("zamba2-7b", "long_500k", "single"),
                 ("qwen2-vl-7b", "train_4k", "single"),
                 ("zamba2-7b", "train_4k", "single"),
-                ("llama3-405b", "prefill_32k", "single"))
+                ("llama3-405b", "prefill_32k", "single"),
+                ("zamba2-7b", "decode_32k", "single"),
+                ("mamba2-130m", "decode_32k", "multi"),
+                ("arctic-480b", "decode_32k", "multi"))
 DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun"
-# the reference's (temp_gb_dev, TFLOP a device) for the same cells: XLA's
-# temp_size_in_bytes of its CPU compile (which leaves out the step's
-# outputs, as the port's temp_gb_dev does) and hlo_gflops_dev / 1000, from
-# `DRYRUN_DEVICES=256 PYTHONPATH=src python -m repro.launch.dryrun --arch A
-# --shape S --mesh single` (512 and --mesh multi for the multi-pod cell)
-# with jax 0.9.0; kept here because this script imports nothing of the
-# reference. Each cell is held to twice the reference's temp and 1.25
-# times its TFLOP (C18, C24, C25)
+# the reference's (temp_gb_dev, TFLOP a device, coll_gb_dev) for the same
+# cells: XLA's temp_size_in_bytes of its CPU compile (which leaves out the
+# step's outputs, as the port's temp_gb_dev does), hlo_gflops_dev / 1000
+# and the operand bytes of its collectives (analyze_hlo's
+# collective_operand_bytes), from `DRYRUN_DEVICES=256 PYTHONPATH=src python
+# -m repro.launch.dryrun --arch A --shape S --mesh single` (512 and --mesh
+# multi for the multi-pod cells) with jax 0.9.0; kept here because this
+# script imports nothing of the reference. Each cell is held to twice the
+# reference's temp and 1.25 times its TFLOP (C18, C24, C25), and the cells
+# of DRYRUN_COLL_GATED to twice its collectives (C26, C27); the others
+# print their ratio
 DRYRUN_REFERENCE = {
-    ("llama3-405b", "train_4k", "single"): (80.929361952, 12935.71994104627),
-    ("arctic-480b", "train_4k", "multi"): (24.3084756, 321.39240275968),
+    ("llama3-405b", "train_4k", "single"): (80.929361952, 12935.71994104627,
+                                            4799.071506592),
+    ("arctic-480b", "train_4k", "multi"): (24.3084756, 321.39240275968,
+                                           1073.068131056),
     ("deepseek-moe-16b", "decode_32k", "single"): (10.134694672,
-                                                   0.020482883584),
-    ("zamba2-7b", "long_500k", "single"): (0.243398616, 0.000450273408),
-    ("qwen2-vl-7b", "train_4k", "single"): (14.764463768, 241.94624520192),
-    ("zamba2-7b", "train_4k", "single"): (28.538585792, 344.642713288704),
+                                                   0.020482883584,
+                                                   0.316707176),
+    ("zamba2-7b", "long_500k", "single"): (0.243398616, 0.000450273408,
+                                           0.035924224),
+    ("qwen2-vl-7b", "train_4k", "single"): (14.764463768, 241.94624520192,
+                                            1105.977431704),
+    ("zamba2-7b", "train_4k", "single"): (28.538585792, 344.642713288704,
+                                          562.24446678),
     ("llama3-405b", "prefill_32k", "single"): (18.414044048,
-                                               4398.596792254464)}
+                                               4398.596792254464,
+                                               1205.53210676),
+    ("zamba2-7b", "decode_32k", "single"): (9.655382648, 0.012191805952,
+                                            0.153807968),
+    ("mamba2-130m", "decode_32k", "multi"): (0.01626928, 6.6932736e-05,
+                                             0.002643476),
+    ("arctic-480b", "decode_32k", "multi"): (10.681343712, 0.48106569728,
+                                             3.925853876)}
 DRYRUN_TEMP_RATIO = 2.0
 DRYRUN_TFLOP_RATIO = 1.25
+DRYRUN_COLL_RATIO = 2.0
+DRYRUN_COLL_GATED = {("deepseek-moe-16b", "decode_32k", "single"),
+                     ("zamba2-7b", "decode_32k", "single"),
+                     ("mamba2-130m", "decode_32k", "multi"),
+                     ("arctic-480b", "decode_32k", "multi")}
 
 
 def dist_ep_shape(prompt_len: int):
@@ -4194,25 +4233,37 @@ def dist_train_shape():
     return ShapeSpec("dist_train", TRAIN_LM_SEQ, TRAIN_LM_BATCH, "train")
 
 
-def meta_twins(ep_prompt_len: int) -> None:
+def dist_ssm_shapes(prompt_len: int):
+    """[dist-ssm]'s prefill of one prompt and a decode step of one row."""
+    from repro_torch.configs.base import ShapeSpec
+    return (ShapeSpec("dist_ssm", prompt_len, 1, "prefill"),
+            ShapeSpec("dist_ssm_decode", prompt_len + DIST_DECODE_STEPS, 1,
+                      "decode"))
+
+
+def meta_twins(ep_prompt_len: int, ssm_prompt_len: int) -> None:
     """Run in a child process (a ``"fake"`` group cannot share a process
-    with the NCCL one): [dist-ep]'s EP prefill and [dist-train]'s sharded
-    step counted on meta tensors in a fake group of one rank on a (1, 1)
-    mesh. Prints one JSON line: each one's collectives (kind, result
-    bytes, group size), argument bytes and the whole peak of the storages
-    it makes (``live_peak_bytes``: its outputs included, what the card's
-    allocator holds above the arguments)."""
+    with the NCCL one): [dist-ep]'s EP prefill, [dist-train]'s sharded
+    step, and [dist-ssm]'s prefill and one decode step counted on meta
+    tensors in a fake group of one rank on a (1, 1) mesh. Prints one JSON
+    line: each one's collectives (kind, result bytes, group size),
+    argument bytes and the whole peak of the storages it makes
+    (``live_peak_bytes``: its outputs included, what the card's allocator
+    holds above the arguments)."""
     sys.path.insert(0, str(SRC))
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
     out = {}
+    ssm_prefill, ssm_decode = dist_ssm_shapes(ssm_prompt_len)
     with dryrun.fake_world(1):
         mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
         for name, arch, shape, over in (
                 ("ep", "deepseek-moe-16b", dist_ep_shape(ep_prompt_len),
                  dict(num_layers=MOE_LAYERS)),
                 ("train", "stablelm-1.6b", dist_train_shape(),
-                 dict(num_layers=TRAIN_LM_LAYERS))):
+                 dict(num_layers=TRAIN_LM_LAYERS)),
+                ("ssm", "mamba2-130m", ssm_prefill, None),
+                ("ssm_decode", "mamba2-130m", ssm_decode, None)):
             c = dryrun.count_cell(arch, shape, mesh, overrides=over)[0]
             out[name] = {"collectives": [[op.kind, op.result_bytes,
                                           op.group_size]
@@ -4272,11 +4323,172 @@ def _collectives(counts) -> list:
             for op in counts.collectives]
 
 
+def decode_run(model, params, place, tok, max_len: int, toks=None):
+    """``model``'s prefill of ``tok`` (1, S), then ``DIST_DECODE_STEPS``
+    decode steps of one row routed row by row, as the server decodes; each
+    batch through ``place`` (its DTensors on a mesh). The steps feed
+    ``toks`` or, where none are given, each step's greedy token. Returns
+    (logits of the prefill and of each step, the tokens fed, a copy of
+    the cache before each step, the final cache)."""
+    import torch
+    from repro_torch.core import packing
+    S = tok.shape[1]
+    logits, cache = model.prefill(params, place({"tokens": tok}), max_len)
+    outs, fed, before = [logits], [], []
+    for i in range(DIST_DECODE_STEPS):
+        t = toks[i] if toks is not None else int(
+            _whole(logits).argmax(-1)[0])
+        fed.append(t)
+        before.append(packing.tree_map(lambda x: x.clone(), cache))
+        step = {"tokens": torch.full((1, 1), t, device="cuda"),
+                "pos": torch.full((1,), S + i, device="cuda")}
+        logits, cache = model.decode_step(params, place(step), cache,
+                                          route_rows=True)
+        outs.append(logits)
+    return outs, fed, before, cache
+
+
+def _whole(t):
+    """A DTensor's whole value; a plain tensor as it is."""
+    return t.full_tensor() if type(t).__name__ == "DTensor" else t
+
+
+def sharded_decode(tag: str, plain, params, model, dparams, mesh, tok,
+                   sharded_run=contextlib.nullcontext) -> float:
+    """``decode_run`` of ``plain`` on ``params`` (unsharded), then of
+    ``model`` on ``dparams`` (DTensors on the one-rank ``mesh``) fed the
+    unsharded run's tokens, inside ``sharded_run()``: each logit row and
+    every cache leaf held within ``DIST_DECODE_ATOL`` (bit-equal) of the
+    unsharded ones; where they are not bit-equal, the first op of the
+    first differing call (0 the prefill) whose result the sharded route
+    does not reproduce is named (``op_trace``, ``first_difference``).
+    Returns the largest difference."""
+    import torch
+    from repro_torch.core import packing
+    from repro_torch.distributed import sharding
+    S = tok.shape[1]
+    max_len = S + DIST_DECODE_STEPS
+
+    def place(b):
+        return sharding.distribute_local(
+            b, mesh, sharding.batch_shardings(mesh, b, 1))
+    want = decode_run(plain, params, lambda b: b, tok, max_len)
+    with sharded_run():
+        got = decode_run(model, dparams, place, tok, max_len, toks=want[1])
+    diffs = [(_whole(g) - w).abs().max().item()
+             for g, w in zip(got[0], want[0])]
+    leaves = [(_whole(g) - w).abs().max().item() for g, w in zip(
+        packing.tree_leaves(got[3]), packing.tree_leaves(want[3]))]
+    worst = max(diffs + leaves)
+    log(f"[{tag}] prefill + {DIST_DECODE_STEPS} decode steps: logits "
+        f"bit-equal to ParallelCtx()'s {all(d == 0 for d in diffs)} "
+        f"(largest difference by call {[f'{d:.3g}' for d in diffs]}); "
+        f"final cache bit-equal {all(d == 0 for d in leaves)} ({len(leaves)}"
+        f" leaves, largest difference {max(leaves):.3g}); tokens fed "
+        f"{want[1]}")
+    if worst > 0:
+        call = next((i for i, d in enumerate(diffs) if d > 0), 0)
+        if call == 0:
+            traces = (op_trace(lambda: plain.prefill(
+                          params, {"tokens": tok}, max_len)),
+                      op_trace(lambda: model.prefill(
+                          dparams, place({"tokens": tok}), max_len)))
+        else:
+            step = {"tokens": torch.full((1, 1), want[1][call - 1],
+                                         device="cuda"),
+                    "pos": torch.full((1,), S + call - 1, device="cuda")}
+            traces = (op_trace(lambda: plain.decode_step(
+                          params, step, want[2][call - 1], route_rows=True)),
+                      op_trace(lambda: model.decode_step(
+                          dparams, place(step), got[2][call - 1],
+                          route_rows=True)))
+        log(f"[{tag}] first op of call {call} (0 the prefill) whose result "
+            f"the sharded route does not reproduce: "
+            f"{first_difference(*traces)}")
+    if not worst <= DIST_DECODE_ATOL:
+        raise AssertionError(f"[{tag}] the sharded route differs from "
+                             f"ParallelCtx()'s by {worst:.3g} > "
+                             f"{DIST_DECODE_ATOL}")
+    return worst
+
+
+def dist_ssm(rec_b4: dict, mesh, twins: dict) -> None:
+    """[dist-ssm]: full-width, full-depth mamba2-130m, the prefill of
+    [serve-ssm]'s longest request and ``DIST_DECODE_STEPS`` decode steps
+    with params and cache as DTensors on the (1, 1) mesh: the prefill's
+    scan is B4 under ``local_map`` (``ssm._scan_on_mesh``) and each step's
+    state update runs under ``local_map`` (``ssm._state_step_on_mesh``).
+    Logits and the final cache against the same run under
+    ``ParallelCtx()`` (``sharded_decode``); every B4 call held to its
+    plain version on its served inputs, B4 launched once a layer, all on
+    the bf16 body; the card's peak above the resident tensors beside the
+    meta twins' arguments and peaks."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ssd_scan as sd
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import ParallelCtx
+    cfg = configs.get("mamba2-130m")
+    r0 = max(ssm_requests(cfg.vocab_size), key=lambda r: len(r.prompt))
+    S = len(r0.prompt)
+    tok = torch.as_tensor(r0.prompt, device="cuda")[None]
+    plain = Model(cfg, device="cuda")
+    params = plain.init(torch.Generator(device="cuda").manual_seed(0))
+    sharded = Model(cfg, ParallelCtx(mesh=mesh), device="cuda")
+    dparams = sharding.distribute_local(
+        params, mesh, sharding.param_shardings(mesh, params))
+    seen: dict = {}
+
+    @contextlib.contextmanager
+    def measured():
+        """The sharded run: every count set to 0 just before it, each B4
+        call held to its plain version, the peak above what is resident."""
+        gc_collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with served_kernel_checks("dist-ssm") as checks:
+            reset_launches()
+            yield
+            torch.cuda.synchronize()
+            seen.update(checks, n=sd.ssd_scan_cuda.launches,
+                        by_body=dict(sd.ssd_scan_cuda.launches_by_body),
+                        peak=torch.cuda.max_memory_allocated() - base)
+    with torch.no_grad():
+        worst = sharded_decode("dist-ssm", plain, params, sharded, dparams,
+                               mesh, tok, measured)
+    n, by_body, peak = seen["n"], seen["by_body"], seen["peak"]
+    log(f"[dist-ssm] {cfg.name} {cfg.num_layers} layers, prompt {S}: B4 "
+        f"{n} launches (by body {by_body}), want {cfg.num_layers} on bf16, "
+        f"each within its limits of the plain version on its served inputs "
+        f"(max abs err y {max(seen['b4']):.3g}, final state "
+        f"{max(seen['b4_state']):.3g} of its allowance)")
+    if n != cfg.num_layers or by_body.get("bf16") != n:
+        raise AssertionError(f"[dist-ssm] ssd_scan launched {n} times "
+                             f"({by_body}), want {cfg.num_layers} on bf16")
+    tw = {k: twins[k] for k in ("ssm", "ssm_decode")}
+    whole = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[dist-ssm] the card's peak above the resident tensors over the "
+        f"sharded prefill and {DIST_DECODE_STEPS} steps {peak / 1e9:.4g} GB "
+        f"(the card's whole peak {whole:.4g} GB, both routes' params and "
+        f"caches resident); meta twins, "
+        f"arg + peak: prefill {tw['ssm']['arg_bytes'] / 1e9:.4g} + "
+        f"{tw['ssm']['live_peak_bytes'] / 1e9:.4g} GB, decode step "
+        f"{tw['ssm_decode']['arg_bytes'] / 1e9:.4g} + "
+        f"{tw['ssm_decode']['live_peak_bytes'] / 1e9:.4g} GB")
+    rec_b4["launches_dist_ssm"] = n
+    rec_b4["dist_ssm"] = {"prompt": S, "decode_steps": DIST_DECODE_STEPS,
+                          "max_abs_diff": worst, "peak_gb": peak / 1e9}
+    del params, dparams, plain, sharded
+
+
 def dist_ep(record: dict, mesh, twins: dict) -> None:
     """[dist-ep]: full-width DeepSeekMoE-16B at [serve-moe]'s depth, the
     prefill of [serve-moe]'s longest request (request 0 of the compared
     path) under expert parallelism on the (1, 1) mesh, with an f32 and a
-    bf16 combine, against the same prefill under ``ParallelCtx()``."""
+    bf16 combine, against the same prefill under ``ParallelCtx()``; then,
+    with the f32 combine, that prefill and ``DIST_DECODE_STEPS`` decode
+    steps routed row by row (``sharded_decode``)."""
     import torch
     from repro_torch import configs
     from repro_torch.distributed import sharding
@@ -4337,6 +4549,9 @@ def dist_ep(record: dict, mesh, twins: dict) -> None:
                 if card != meta:
                     raise AssertionError(f"[dist-ep] card collectives "
                                          f"{card} != meta {meta}")
+                # the decode steps the server runs, routed row by row
+                sharded_decode("dist-ep", plain, params, model, dparams,
+                               mesh, tok)
         del dparams, logits, got
     record["launches_dist_ep"] = out["ep"]["launches"]
     record["dist_ep"] = {"prompt": S, "prefill_ms": out["ep"]["ms"],
@@ -4587,10 +4802,13 @@ def gc_collect() -> None:
 
 def dryrun_phase(results: dict) -> None:
     """[dryrun]: every cell's child exited 0 with an OK line; each row's
-    ``arg_gb_dev`` equals the argument bytes summed from its specs; the
-    multi-pod cell carries collective bytes on its pod axis; each cell's
+    ``arg_gb_dev`` equals the argument bytes summed from its specs; each
+    multi-pod cell carries collective bytes on its pod axis (alone, or
+    with "data" in one collective over their flattened group); each cell's
     temp (its outputs left out, as the reference's) within twice the
-    reference's and its TFLOP within 1.25 times; arg + peak per device
+    reference's and its TFLOP within 1.25 times, the collectives of
+    ``DRYRUN_COLL_GATED``'s cells within twice the reference's and the
+    others' ratio printed; arg + peak per device
     (the peak of temporaries and outputs together, what the card's
     allocator would hold) printed beside 80 GB (a reading, not a gate),
     and the outputs' bytes."""
@@ -4613,12 +4831,17 @@ def dryrun_phase(results: dict) -> None:
                                  f"{row['arg_gb_dev']} != "
                                  f"{row['arg_gb_dev_from_specs']} from the "
                                  f"specs")
-        if mesh == "multi" and not row["coll_by_axis_gb"].get("pod", 0) > 0:
+        # a collective over the pod axis alone or over a group of it and
+        # other axes ("pod+data": a gather over their flattened group)
+        on_pod = sum(gb for axes, gb in row["coll_by_axis_gb"].items()
+                     if "pod" in axes.split("+"))
+        if mesh == "multi" and not on_pod > 0:
             raise AssertionError(f"[dryrun] {label}: no collective bytes on "
                                  f"the pod axis: {row['coll_by_axis_gb']}")
         total = row["arg_gb_dev"] + row["peak_gb_dev"]
-        ref_temp, ref_tflop = DRYRUN_REFERENCE[(arch, shape, mesh)]
+        ref_temp, ref_tflop, ref_coll = DRYRUN_REFERENCE[(arch, shape, mesh)]
         tflop = row["gflops_dev"] / 1e3
+        coll = row["coll_gb_dev"]
         log(f"[dryrun] {label}: arg + peak {total:.2f} GB a device beside "
             f"the card's 80 GB ({'fits' if total <= 80 else 'does not fit'}"
             f"; a count against HW.h100's data-sheet constants, not a "
@@ -4626,8 +4849,16 @@ def dryrun_phase(results: dict) -> None:
             f"{row['temp_gb_dev']:.4g} GB beside the reference's "
             f"{ref_temp:.4g} ({row['temp_gb_dev'] / ref_temp:.3f}x); "
             f"{tflop:.4g} TFLOP beside the reference's {ref_tflop:.4g} "
-            f"({tflop / ref_tflop:.3f}x); collectives by axis "
-            f"{row['coll_by_axis_gb']}; {secs:.1f} s")
+            f"({tflop / ref_tflop:.3f}x); collectives {coll:.4g} GB "
+            f"beside the reference's {ref_coll:.4g} "
+            f"({coll / ref_coll:.3f}x"
+            f"{', gated' if (arch, shape, mesh) in DRYRUN_COLL_GATED else ''}"
+            f"), by axis {row['coll_by_axis_gb']}; {secs:.1f} s")
+        if (arch, shape, mesh) in DRYRUN_COLL_GATED and \
+                not coll <= DRYRUN_COLL_RATIO * ref_coll:
+            raise AssertionError(f"[dryrun] {label}: collectives {coll:.4g}"
+                                 f" GB a device > {DRYRUN_COLL_RATIO} x the "
+                                 f"reference's {ref_coll:.4g}")
         if not row["temp_gb_dev"] <= DRYRUN_TEMP_RATIO * ref_temp:
             raise AssertionError(f"[dryrun] {label}: temp "
                                  f"{row['temp_gb_dev']:.2f} GB a device > "
@@ -4639,22 +4870,25 @@ def dryrun_phase(results: dict) -> None:
                                  f"reference's {ref_tflop:.4g}")
 
 
-def dist_phases(record: dict) -> None:
-    """Phase 9: the meta twins count in a child first; [dist-ep] and
-    [dist-train] run on a NCCL group of one rank with no child running (so
-    that their host walls are not taken under its load); then the
-    [dryrun] cells run as children and [dryrun] reads them."""
+def dist_phases(record: dict, rec_b4: dict) -> None:
+    """Phase 9: the meta twins count in a child first; [dist-ep],
+    [dist-ssm] and [dist-train] run on a NCCL group of one rank with no
+    child running (so that their host walls are not taken under its
+    load); then the [dryrun] cells run as children and [dryrun] reads
+    them."""
     from repro_torch import configs
     from repro_torch.launch.mesh import make_mesh
     cfg = configs.get("deepseek-moe-16b")
     reqs = make_requests(0, 8, (512, 1024), (8, 32), cfg.vocab_size)
     ep_len = max(len(r.prompt) for r in reqs)
+    ssm_len = max(len(r.prompt) for r in ssm_requests(
+        configs.get("mamba2-130m").vocab_size))
     if DRYRUN_OUT.exists():
         shutil.rmtree(DRYRUN_OUT)
     root = str(Path(__file__).resolve().parent)
     kids = [start_child("meta twins", [
         "-c", f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
-        f"chip_smoke.meta_twins({ep_len})"])]
+        f"chip_smoke.meta_twins({ep_len}, {ssm_len})"])]
     try:
         rc, text, secs = finish_children(kids, timeout=600)["meta twins"]
         if rc != 0:
@@ -4665,6 +4899,8 @@ def dist_phases(record: dict) -> None:
         with nccl_world():
             mesh = make_mesh((1, 1), ("data", "model"))
             dist_ep(record, mesh, twins)
+            gc_collect()
+            dist_ssm(rec_b4, mesh, twins)
             gc_collect()
             dist_train(record, mesh, twins)
             gc_collect()
@@ -4778,7 +5014,7 @@ def main() -> int:
     t7 = time.perf_counter()
     policy_phases(records[0])
     t8 = time.perf_counter()
-    dist_phases(records[0])
+    dist_phases(records[0], records[4])
     t9 = time.perf_counter()
     examples()
     t10 = time.perf_counter()

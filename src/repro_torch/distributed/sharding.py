@@ -418,6 +418,108 @@ def fsdp_gather(w, keep_model: bool = True):
     return constrain(w, mesh, need, w.placements)
 
 
+def _flat(mesh, axes):
+    """The 1-D mesh of ``axes`` flattened, major to minor (as a dim split
+    over them is laid out)."""
+    return mesh[tuple(axes)]._flatten()
+
+
+def _reverse(src, dst):
+    """The (src, dst) of a redistribution's gradient: a gather's is a
+    reduce-scatter of partial sums, a reduce-scatter's a gather, a
+    re-split's the re-split back."""
+    from torch.distributed.tensor import Partial, Replicate
+    if dst.is_replicate():
+        return Partial(), src
+    if src.is_partial():
+        return dst, Replicate()
+    return dst, src
+
+
+def _moved(t, axes, src, dst):
+    """``t`` with ``axes`` (all ``src``) redistributed to ``dst`` in one
+    collective over their flattened group, its other placements kept."""
+    from torch.distributed.tensor import DTensor
+    mesh = t.device_mesh
+    flat = _flat(mesh, axes)
+    local = DTensor.from_local(t.to_local(), flat, [src], run_check=False
+                               ).redistribute(flat, [dst]).to_local()
+    out = [dst if a in axes else p
+           for a, p in zip(mesh.mesh_dim_names, t.placements)]
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+class _OverDataAxes(torch.autograd.Function):
+    """``_moved`` forward, and its gradient moved back (``_reverse``) over
+    the same group."""
+
+    @staticmethod
+    def forward(ctx, t, axes, src, dst):
+        ctx.axes, ctx.back = axes, _reverse(src, dst)
+        return _moved(t, axes, src, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst = ctx.back
+        names = g.device_mesh.mesh_dim_names
+        if all(g.placements[names.index(a)] == src for a in ctx.axes):
+            return _moved(g, ctx.axes, src, dst), None, None, None
+        to = [dst if a in ctx.axes else p for a, p in zip(names, g.placements)]
+        return _owned(g.redistribute(g.device_mesh, to), g), None, None, None
+
+
+def over_data_axes(t, dst):
+    """DTensor ``t`` placed ``dst`` on each data axis of more than one rank
+    (its "model" placement kept), in ONE collective over the flattened
+    group of the axes that move, where they all move from one placement:
+    a gather (``dst`` Replicate), a reduce-scatter of partial sums, or a
+    re-split (an all-to-all). DTensor moves a dim split over ("pod",
+    "data") axis by axis, and gathers "data" first, so that the "pod"
+    gather moves a tensor as many times larger as "data" has ranks. The
+    gradient moves back over the same group (a gather's partial sums as
+    one reduce-scatter). Where one axis moves, or axes from different
+    placements, it is ``constrain`` (DTensor's own collectives); where
+    none does, ``t``."""
+    mesh = t.device_mesh
+    sizes = axis_sizes(mesh)
+    axes = [a for a, p in zip(sizes, t.placements)
+            if a != "model" and sizes[a] > 1 and p != dst]
+    if not axes:
+        return t
+    names = list(sizes)
+    srcs = {t.placements[names.index(a)] for a in axes}
+    if len(axes) > 1 and len(srcs) == 1:
+        return _OverDataAxes.apply(t, tuple(axes), srcs.pop(), dst)
+    from torch.distributed.tensor import Replicate
+    to = [dst if a in axes else p for a, p in zip(names, t.placements)]
+    back = [_reverse(p, dst)[1] if a in axes
+            else Replicate() if p.is_partial() else p
+            for a, p in zip(names, t.placements)]
+    return constrain(t, mesh, to, back)
+
+
+def rows_product(x, w):
+    """``split_contraction(x, w)`` for an activation of one token a row (a
+    decode step's (B, d) or (B, 1, d)), its rows split over the data axes,
+    and a weight left split over them (serving: ``layers.at_use``): where
+    two data axes or more split both, the rows meet the weight gathered
+    in one collective and the result goes back to them in one
+    (``over_data_axes``), where DTensor would move the rows, or the
+    result, axis by axis. Otherwise ``split_contraction(x, w)``: on one
+    axis DTensor's own move is one collective."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(x.device_mesh)
+    one_token = x.numel() == x.shape[0] * x.shape[-1]
+    axes = [a for a, p, q in zip(sizes, x.placements, w.placements)
+            if a != "model" and sizes[a] > 1 and p == Shard(0)
+            and q.is_shard()]
+    if not one_token or len(axes) < 2:
+        return split_contraction(x, w)
+    out = split_contraction(over_data_axes(x, Replicate()), w)
+    return over_data_axes(out, Shard(0))
+
+
 def split_contraction(x, w):
     """``x @ w`` (DTensors, ``w`` a matrix at its use) split over "model"
     along the contraction where the placements leave that to DTensor,

@@ -182,8 +182,13 @@ def spec_local_bytes(specs: Any, mesh) -> int:
 def fake_world(size: int):
     """A ``"fake"`` default process group of ``size`` ranks (this process
     is rank 0), destroyed on exit. Its collectives complete at once and
-    move nothing."""
+    move nothing. DTensor's sharding propagation caches are cleared on
+    exit: they key an op by its meshes' layouts, so that a later world's
+    op on a mesh of the same layout was handed this world's mesh, and
+    with it this world's groups (a flattened one among them,
+    ``sharding.over_data_axes``), which no longer exist."""
     import torch.distributed as dist
+    from torch.distributed.tensor import debug
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("fake_world: a process group already exists")
@@ -193,6 +198,9 @@ def fake_world(size: int):
         yield
     finally:
         dist.destroy_process_group()
+        clear = getattr(debug, "_clear_sharding_prop_cache", None)
+        if clear is not None:
+            clear()
 
 
 def count_cell(arch: str, shape_name, mesh, *, fsdp: bool = True,

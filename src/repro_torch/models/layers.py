@@ -184,11 +184,13 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in x's dtype, ``w`` taken at its use (``at_use``). Under a
     mesh the product is split over "model" along its contraction where
     the weight's placements leave that to DTensor
-    (``sharding.split_contraction``)."""
+    (``sharding.split_contraction``), and a decode step's rows meet a
+    serving weight split over several data axes in one collective
+    (``sharding.rows_product``)."""
     w = at_use(w, x.dtype)
     if is_dtensor(w):
-        from repro_torch.distributed.sharding import split_contraction
-        return split_contraction(x, w)
+        from repro_torch.distributed.sharding import rows_product
+        return rows_product(x, w)
     return x @ w
 
 

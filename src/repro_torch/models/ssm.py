@@ -105,12 +105,21 @@ def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One recurrent step. state (B,nh,hd,N); x_t (B,nh,hd); dt_t (B,nh);
     B_t/C_t (B,N). Returns (y_t (B,nh,hd), new_state)."""
+    new_state = _state_update(state, x_t, dt_t, A, B_t)
+    return _read_out(new_state, C_t, x_t.dtype), new_state
+
+
+def _state_update(state, x_t, dt_t, A, B_t):
+    """The decayed state plus this step's input: (B,nh,hd,N) f32."""
     a = torch.exp(dt_t.to(_F32) * A.to(_F32))             # (B,nh)
     xb = x_t.to(_F32) * dt_t.to(_F32)[..., None]          # (B,nh,hd)
     upd = xb[..., None] * B_t.to(_F32)[:, None, None, :]
-    new_state = state * a[:, :, None, None] + upd
-    y = torch.einsum("bhpn,bn->bhp", new_state, C_t.to(_F32))
-    return y.to(x_t.dtype), new_state
+    return state * a[:, :, None, None] + upd
+
+
+def _read_out(state, C_t, dtype):
+    """y_t (B,nh,hd) in ``dtype``: each head's state read by C_t."""
+    return torch.einsum("bhpn,bn->bhp", state, C_t.to(_F32)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -152,10 +161,32 @@ def _conv_on_mesh(x, w, b):
 
 
 def causal_conv1d_step(conv_state, x_t, w, b):
-    """conv_state (B,width-1,Ch) holds previous inputs; x_t (B,Ch)."""
+    """conv_state (B,width-1,Ch) holds previous inputs; x_t (B,Ch). Under a
+    mesh it runs under ``local_map`` in the conv state's placements (the
+    cache's), x_t moved to them, w and b whole: each rank steps its own
+    rows (DTensor's own einsum cannot view a batch dim that is marked
+    split, even over one rank)."""
+    if is_dtensor(conv_state):
+        return _conv_step_on_mesh(conv_state, x_t, w, b)
     full = torch.cat([conv_state, x_t[:, None]], dim=1)   # (B,width,Ch)
     y = torch.einsum("bwc,wc->bc", full, w) + b
     return y, full[:, 1:]
+
+
+def _conv_step_on_mesh(conv_state, x_t, w, b):
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import dim_placements
+    mesh = conv_state.device_mesh
+    st_p = list(conv_state.placements)
+    # x_t (B, Ch) split as the state (B, width-1, Ch) is: its dim 1 is gone
+    x_p = [Shard(p.dim - (p.dim > 0)) if p.is_shard() else p for p in st_p]
+    whole = dim_placements(mesh)
+    return local_map(
+        causal_conv1d_step, out_placements=(x_p, st_p),
+        in_placements=(st_p, x_p, whole, whole), device_mesh=mesh,
+        redistribute_inputs=True)(conv_state, x_t, w, b)
 
 
 # ---------------------------------------------------------------------------
@@ -277,21 +308,10 @@ def _scan_split_heads(fn, x, dt, A, B, C, init_state, bd):
     heads)."""
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import (axis_sizes, constrain,
-                                                  dim_placements)
+    from repro_torch.distributed.sharding import constrain, dim_placements
     mesh = x.device_mesh
     nh = x.shape[2]
-    per = -(-nh // axis_sizes(mesh)["model"])
-    lo = min(mesh.get_local_rank("model") * per, nh)
-    n = min(per, nh - lo)
-
-    def mine(t, dim):
-        part = t.narrow(dim, lo, n)
-        if n == per:
-            return part
-        shape = list(part.shape)
-        shape[dim] = per - n
-        return torch.cat([part, part.new_zeros(shape)], dim)
+    mine = _head_share(mesh, nh)
 
     def scan(x, dt, A, B, C, s):
         return fn(mine(x, 2), mine(dt, 2), mine(A, 0), B, C,
@@ -314,53 +334,38 @@ def _scan_split_heads(fn, x, dt, A, B, C, init_state, bd):
             constrain(state, mesh, whole, st_p)[:, :nh])
 
 
+def _head_share(mesh, nh: int):
+    """``mine(t, dim)``: this "model" rank's share of ``nh`` heads along
+    ``dim`` of ``t``, ceil(nh / model) of them, the last ranks' made up
+    with zero heads (a rank past the heads takes zeros only)."""
+    from repro_torch.distributed.sharding import axis_sizes
+    per = -(-nh // axis_sizes(mesh)["model"])
+    lo = min(mesh.get_local_rank("model") * per, nh)
+    n = min(per, nh - lo)
+
+    def mine(t, dim):
+        part = t.narrow(dim, lo, n)
+        if n == per:
+            return part
+        shape = list(part.shape)
+        shape[dim] = per - n
+        return torch.cat([part, part.new_zeros(shape)], dim)
+    return mine
+
+
 def _project_on_mesh(params: dict, x, d_in: int, nh: int, s: SSMConfig):
     """The in-projection and the causal conv of ``_block`` on a mesh whose
     "model" axis has more than one rank: z, the conv's outputs x, B and C
     (after SiLU), dt before its bias, and the decode conv state (the
-    projected conv input's last width-1 rows). One product for each column
-    block of w_in (z, x, B, C, dt) at its use: w_in gathered whole over
-    "model" (and over the data axes where it takes a gradient:
-    ``layers.at_use``), each block then split over "model" along its
-    columns where "model" divides its width, and its product split along
-    the contraction where not (``sharding.split_contraction``); the conv
-    likewise on each of x, B and C. So every output keeps its own split
-    over "model" and its weight gradient is computed on it: one product
-    split over "model" would be cut into z, xBC and dt off its shard
-    edges, for which DTensor gathers the whole (B, S, d_in + ch + nh)
-    product (and some versions compute its weight gradient whole on every
-    rank). x comes back split over "model" along whole heads, or whole."""
+    projected conv input's last width-1 rows). The products are
+    ``_in_blocks``'; the conv runs on each of x, B and C on its own split.
+    x comes back split over "model" along whole heads, or whole."""
     from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.distributed.sharding import (constrain, model_dim,
-                                                  split_contraction)
+    from repro_torch.distributed.sharding import constrain, model_dim
     mesh = x.device_mesh
-    m = mesh.mesh_dim_names.index("model")
-
-    def on_model(t, p):
-        out = list(t.placements)
-        out[m] = p
-        return out
-
-    def whole(t):
-        return constrain(t, mesh, on_model(t, Replicate()), t.placements)
-
-    N, tail = s.state_dim, s.conv_width - 1
-    w = whole(layers.at_use(params["w_in"], x.dtype))
-    conv_w, conv_b = (whole(params[k].to(x.dtype))
-                      for k in ("conv_w", "conv_b"))
-    outs, lo = [], 0
-    for n in (d_in, d_in, N, N, nh):             # z, x, B, C, dt
-        blk = w[:, lo:lo + n]
-        if model_dim(mesh, n, 1) is not None:
-            blk = constrain(blk, mesh, on_model(blk, Shard(1)),
-                            blk.placements)
-        out = split_contraction(x, blk)
-        # its gradient held to its placements, so that the weight
-        # gradient is taken on the split whatever DTensor would pick
-        outs.append(constrain(out, mesh, out.placements))
-        lo += n
-    z, x_in, b_in, c_in, dt_raw = outs
+    z, x_in, b_in, c_in, dt_raw = _in_blocks(params, x, d_in, nh, s)
+    conv_w, conv_b = _conv_params(params, x)
     convs, lo = [], 0
     for t in (x_in, b_in, c_in):
         n = t.shape[-1]
@@ -368,10 +373,120 @@ def _project_on_mesh(params: dict, x, d_in: int, nh: int, s: SSMConfig):
                                                conv_b[lo:lo + n])))
         lo += n
     xs = convs[0]
-    xs = constrain(xs, mesh, on_model(
+    xs = constrain(xs, mesh, _on_model(
         xs, Replicate() if model_dim(mesh, nh, 0) is None else Shard(2)))
+    tail = s.conv_width - 1
     state = torch.cat([t[:, -tail:] for t in (x_in, b_in, c_in)], -1)
     return z, xs, convs[1], convs[2], dt_raw, state
+
+
+def _on_model(t, p) -> list:
+    """``t``'s placements with p on "model"."""
+    out = list(t.placements)
+    out[t.device_mesh.mesh_dim_names.index("model")] = p
+    return out
+
+
+def _whole_on_model(t):
+    """``t`` (a DTensor) whole over "model", its gradient going back to
+    its own placements."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed.sharding import constrain
+    return constrain(t, t.device_mesh, _on_model(t, Replicate()),
+                     t.placements)
+
+
+def _conv_params(params: dict, x):
+    """The conv's weight and bias in x's dtype, whole over "model"."""
+    return (_whole_on_model(params[k].to(x.dtype))
+            for k in ("conv_w", "conv_b"))
+
+
+def _in_blocks(params: dict, x, d_in: int, nh: int, s: SSMConfig):
+    """z, x, B, C and dt (before its bias) of a Mamba2 block's input x
+    (B, S, d) or (B, d), DTensors on a mesh whose "model" axis has more
+    than one rank: one product for each column block of w_in at its use.
+    w_in is gathered whole over "model" (and over the data axes where it
+    takes a gradient: ``layers.at_use``); each block is then split over
+    "model" along its columns where "model" divides its width, and its
+    product split along the contraction where not
+    (``sharding.split_contraction``). So every output keeps its own split
+    over "model" and its weight gradient is computed on it: one product
+    split over "model" would be cut into z, xBC and dt off its shard
+    edges, for which DTensor gathers the whole (B, S, d_in + ch + nh)
+    product (and some versions compute its weight gradient whole on every
+    rank). Each output is held to x's batch rows over the data axes where
+    they divide them: a decode step's rows, gathered to meet a serving
+    weight split over the data axes along the contraction
+    (``sharding.rows_product``), go back to the rows as partial sums
+    reduce-scattered, not summed whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import (batch_dim, constrain,
+                                                  model_dim, rows_product)
+    mesh = x.device_mesh
+    rows = batch_dim(mesh, x.shape[0]) is not None
+    w = _whole_on_model(layers.at_use(params["w_in"], x.dtype))
+    outs, lo = [], 0
+    for n in (d_in, d_in, s.state_dim, s.state_dim, nh):   # z, x, B, C, dt
+        blk = w[:, lo:lo + n]
+        if model_dim(mesh, n, 1) is not None:
+            blk = constrain(blk, mesh, _on_model(blk, Shard(1)),
+                            blk.placements)
+        out = rows_product(x, blk)
+        # the rows over the data axes (whole where they do not divide
+        # them: partial sums summed), and the gradient held to the same
+        # placements, so that the weight gradient is taken on the split
+        # whatever DTensor would pick
+        place = [p if a == "model" else Shard(0) if rows
+                 else Replicate() if p.is_partial() else p
+                 for a, p in zip(mesh.mesh_dim_names, out.placements)]
+        outs.append(constrain(out, mesh, place))
+        lo += n
+    return outs
+
+
+def _state_step_on_mesh(state, x, dt, A, B, C):
+    """``ssd_decode_step`` on DTensor operands under ``local_map``: the
+    batch over the data axes, and the state (B, nh, hd, N) in the
+    placements the cache holds it in (``sharding.batch_specs``), which
+    are prefill's. Where "model" divides the heads each rank steps its own
+    heads, the state split over "model" along them. Where it does not, the
+    state is whole over "model" on every rank: each rank decays and adds
+    to every head (no product), and reads out y for its own share of
+    ceil(nh / model) heads (``_head_share``, the last ranks' made up with
+    zero heads, dropped), which is gathered over "model" (a few KB a
+    layer). No rank gathers the state."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import (batch_dim, constrain,
+                                                  dim_placements, model_dim)
+    mesh = x.device_mesh
+    b, nh = x.shape[0], x.shape[1]
+    bd = batch_dim(mesh, b)
+    on = lambda mdl: dim_placements(mesh, data=bd, model=mdl)  # noqa: E731
+    if model_dim(mesh, nh, 1) is not None:
+        heads, bc_p = on(1), on(None)
+        return local_map(
+            ssd_decode_step, out_placements=(heads, heads),
+            in_placements=(heads, heads, heads, dim_placements(mesh, model=0),
+                           bc_p, bc_p),
+            device_mesh=mesh, redistribute_inputs=True)(state, x, dt, A, B,
+                                                        C)
+    mine = _head_share(mesh, nh)
+
+    def step(state, x, dt, A, B, C):
+        new = _state_update(state, x, dt, A, B)
+        return _read_out(mine(new, 1), C, x.dtype), new
+
+    whole, y_p = on(None), on(1)
+    y, new = local_map(
+        step, out_placements=(y_p, whole),
+        in_placements=(whole, whole, whole, dim_placements(mesh), whole,
+                       whole),
+        device_mesh=mesh, redistribute_inputs=True)(state, x, dt, A, B, C)
+    return constrain(y, mesh, whole)[:, :nh], new
 
 
 def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
@@ -379,8 +494,7 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
     """``mamba2_block`` that also returns the decode conv state: the last
     width-1 rows of the projected conv input xBC (B, S, ch)."""
     d_in, nh, ch = dims(d_model, s)
-    if is_dtensor(x) and x.device_mesh.shape[
-            x.device_mesh.mesh_dim_names.index("model")] > 1:
+    if _on_mesh(x):
         z, xs, Bm, Cm, dt_raw, conv_state = _project_on_mesh(
             params, x, d_in, nh, s)
     else:
@@ -400,24 +514,35 @@ def _block(params: dict, x, d_model: int, s: SSMConfig, init_state,
                              needs_grad(xh, dt, A, Bm, Cm, init_state))
     y, state = _scan(impl, xh, dt, A, Bm, Cm, s.chunk_size, init_state)
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(b, S, d_in)
+    return _gate_out(params, y.reshape(b, S, d_in), z), state, conv_state
+
+
+def _on_mesh(x) -> bool:
+    """Whether x is a DTensor on a mesh whose "model" axis has more than
+    one rank (where a block takes its mesh routes)."""
+    return is_dtensor(x) and x.device_mesh.shape[
+        x.device_mesh.mesh_dim_names.index("model")] > 1
+
+
+def _gate_out(params: dict, y, z):
+    """The gated norm and the out-projection of y (..., d_in). Under a
+    mesh they run on d_in split over "model" (where the scan or the
+    decode step gave the heads back whole and "model" divides d_in), and
+    the gradient is held to the merged heads' placements before the
+    view's backward splits it into heads (a dim sharded along part-heads
+    cannot split)."""
     if is_dtensor(y):
-        # the gated norm and the out-projection on d_in split over "model"
-        # (where the scan gave the heads back whole and "model" divides
-        # d_in), and the gradient held to the merged heads' placements
-        # before the view's backward splits it into heads (a dim sharded
-        # along part-heads cannot split)
         from torch.distributed.tensor import Shard
 
         from repro_torch.distributed.sharding import constrain, model_dim
         mesh = y.device_mesh
         split = list(y.placements)
         m = mesh.mesh_dim_names.index("model")
-        if mesh.shape[m] > 1 and model_dim(mesh, d_in, 2) is not None:
-            split[m] = Shard(2)
+        if mesh.shape[m] > 1 and model_dim(mesh, y.shape[-1], 0) is not None:
+            split[m] = Shard(y.ndim - 1)
         y = constrain(y, mesh, split, y.placements)
     y = layers.rms_norm(y * layers.silu(z), params["norm_w"])
-    return layers.dense(y, params["w_out"]), state, conv_state
+    return layers.dense(y, params["w_out"])
 
 
 def mamba2_block(params: dict, x, d_model: int, s: SSMConfig,
@@ -440,11 +565,34 @@ def mamba2_prefill(params: dict, x, d_model: int, s: SSMConfig,
 
 def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,
                        s: SSMConfig) -> Tuple[torch.Tensor, dict]:
-    """One-token decode. x_t (B,d). state={'conv':(B,w-1,ch),'ssm':(B,nh,hd,N)}."""
-    z, xBC, dt_raw, (d_in, nh, ch) = _project(params, x_t, d_model, s)
-    xBC, conv_state = causal_conv1d_step(
-        state["conv"], xBC, params["conv_w"].to(x_t.dtype),
-        params["conv_b"].to(x_t.dtype))
+    """One-token decode. x_t (B,d). state={'conv':(B,w-1,ch),'ssm':(B,nh,hd,N)}.
+
+    On DTensors the state update runs under ``local_map``
+    (``_state_step_on_mesh``), and the new state keeps the placements of
+    the one given, which are the cache's. Where "model" has more than one
+    rank the in-projection is one product per column block of w_in
+    (``_in_blocks``), the batch rows kept over the data axes; the conv
+    step takes x, B and C gathered whole over "model" (one row each), so
+    that the conv state keeps its cache placements too (whole over
+    "model", as prefill leaves it), and its output goes back to the
+    rows of its input (a hybrid's cache holds its conv state with the
+    batch over "model": ``sharding.batch_specs``' rule for a path that
+    names "ssm")."""
+    d_in, nh, ch = dims(d_model, s)
+    on_mesh = _on_mesh(x_t)
+    if on_mesh:
+        z, x_in, b_in, c_in, dt_raw = _in_blocks(params, x_t, d_in, nh, s)
+        xBC = torch.cat([_whole_on_model(t) for t in (x_in, b_in, c_in)], -1)
+        conv_w, conv_b = _conv_params(params, x_t)
+    else:
+        z, xBC, dt_raw, _ = _project(params, x_t, d_model, s)
+        conv_w, conv_b = (params[k].to(x_t.dtype) for k in ("conv_w",
+                                                            "conv_b"))
+    rows = xBC.placements if on_mesh else None
+    xBC, conv_state = causal_conv1d_step(state["conv"], xBC, conv_w, conv_b)
+    if on_mesh:
+        from repro_torch.distributed.sharding import constrain
+        xBC = constrain(xBC, xBC.device_mesh, rows)
     xBC = layers.silu(xBC)
     xs = xBC[..., :d_in]
     Bm = xBC[..., d_in:d_in + s.state_dim]
@@ -452,12 +600,11 @@ def mamba2_decode_step(params: dict, x_t, state: dict, d_model: int,
     xh = xs.reshape(-1, nh, s.head_dim)
     dt = F.softplus(dt_raw.to(_F32) + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    y, ssm_state = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm)
+    step = _state_step_on_mesh if is_dtensor(xh) else ssd_decode_step
+    y, ssm_state = step(state["ssm"], xh, dt, A, Bm, Cm)
     y = y + params["D"].to(x_t.dtype)[None, :, None] * xh
-    y = y.reshape(-1, d_in)
-    y = layers.rms_norm(y * layers.silu(z), params["norm_w"])
-    return y @ params["w_out"].to(x_t.dtype), {"conv": conv_state,
-                                                "ssm": ssm_state}
+    return _gate_out(params, y.reshape(-1, d_in), z), {"conv": conv_state,
+                                                       "ssm": ssm_state}
 
 
 def init_decode_state(batch: int, d_model: int, s: SSMConfig, dtype,

@@ -109,10 +109,12 @@ def _ep_moe_call(p_moe: dict, xt, cfg: ModelConfig, pctx: ParallelCtx,
     every "model" rank, so only rank 0 of that axis passes its gradient
     on, and the sum over "model" counts it once."""
     import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.distributed.collectives import sum_over_group
     from repro_torch.distributed.sharding import dim_placements as pl
+    from repro_torch.distributed.sharding import over_data_axes
     mesh, m = pctx.mesh, cfg.moe
     names = mesh.mesh_dim_names
     sizes = dict(zip(names, mesh.shape))
@@ -138,6 +140,13 @@ def _ep_moe_call(p_moe: dict, xt, cfg: ModelConfig, pctx: ParallelCtx,
         return y, aux
 
     rep, tok, exp = pl(mesh), pl(mesh, data=0), pl(mesh, model=0)
+    # the experts whole over the data axes in one gather over their
+    # flattened group (``sharding.over_data_axes``): left to local_map,
+    # DTensor gathers "data" first and then "pod" on a tensor as many
+    # times larger as "data" has ranks; the gradient goes back as one
+    # reduce-scatter
+    experts = [over_data_axes(p_moe[k], Replicate())
+               for k in ("w_gate", "w_up", "w_down")]
     fn = local_map(body, out_placements=(tok, rep),
                    in_placements=(rep, exp, exp, exp, tok),
                    in_grad_placements=(
@@ -145,8 +154,7 @@ def _ep_moe_call(p_moe: dict, xt, cfg: ModelConfig, pctx: ParallelCtx,
                        *[pl(mesh, model=0, data_partial=True)] * 3,
                        pl(mesh, data=0, model_partial=True)),
                    device_mesh=mesh, redistribute_inputs=True)
-    return fn(p_moe["router"], p_moe["w_gate"], p_moe["w_up"],
-              p_moe["w_down"], xt)
+    return fn(p_moe["router"], *experts, xt)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,

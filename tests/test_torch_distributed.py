@@ -542,6 +542,55 @@ for i in range(2):
     got, dcache = sharded.decode_step(dparams, place(step), dcache)
     errs.append(float((got.full_tensor() - want).abs().max()))
 out["hybrid_errs"] = errs
+# reduced Mamba2 models on the mesh with FSDP params: prefill, then two
+# decode steps, with 8 heads ("model" divides them) and with 3 (it does
+# not); every cache write of a decode step has the placements of the cache
+# leaf it lands in (nothing re-laid out), and the cache keeps prefill's
+from repro_torch.models import transformer as tf
+writes = []
+real_write = tf._write
+
+def spy_write(cache, new):
+    writes.append([(d.placements, s.placements) for d, s in zip(
+        packing.tree_leaves(cache), packing.tree_leaves(new))])
+    return real_write(cache, new)
+for name, d, hd in (("even", 32, 8), ("odd", 24, 16)):
+    scfg = dataclasses.replace(
+        configs.get("mamba2-130m").reduced(), d_model=d,
+        ssm=SSMConfig(state_dim=8, head_dim=hd, expand=2, chunk_size=8))
+    splain = Model(scfg, ParallelCtx(attn_impl="kernel"), device="cpu")
+    sparams = splain.init(torch.Generator().manual_seed(2))
+    smesh = Model(scfg, ParallelCtx(mesh=mesh, attn_impl="kernel"),
+                  device="cpu")
+    sdp = sharding.distribute_local(sparams, mesh, sharding.param_shardings(
+        mesh, sparams))
+    batch = {"tokens": torch.randint(0, scfg.vocab_size, (4, 16),
+                                     generator=gen)}
+    with torch.no_grad():
+        want, cache = splain.prefill(sparams, batch, 32)
+        got, dcache = smesh.prefill(sdp, place(batch), 32)
+        after_prefill = [c.placements for c in packing.tree_leaves(dcache)]
+        errs = [float((got.full_tensor() - want).abs().max())]
+        writes.clear()
+        for i in range(2):
+            step = {"tokens": torch.randint(0, scfg.vocab_size, (4, 1),
+                                            generator=gen),
+                    "pos": torch.full((4,), 16 + i)}
+            want, cache = splain.decode_step(sparams, step, cache)
+            tf._write = spy_write
+            try:
+                got, dcache = smesh.decode_step(sdp, place(step), dcache)
+            finally:
+                tf._write = real_write
+            errs.append(float((got.full_tensor() - want).abs().max()))
+    errs += [float((a.full_tensor() - b).abs().max()) for a, b in zip(
+        packing.tree_leaves(dcache), packing.tree_leaves(cache))]
+    out[f"ssm_{name}_heads"] = scfg.ssm.expand * d // hd
+    out[f"ssm_{name}_errs"] = errs
+    out[f"ssm_{name}_writes_kept"] = bool(writes) and all(
+        a == b for w in writes for a, b in w)
+    out[f"ssm_{name}_cache_kept"] = after_prefill == [
+        c.placements for c in packing.tree_leaves(dcache)]
 """
 
 
@@ -647,6 +696,22 @@ def test_hybrid_model_serves_on_a_mesh(gloo4):
     under ``local_map``): prefill and two decode steps within 1e-5 of the
     same model unsharded (sums over the ranks in other orders)."""
     assert max(gloo4["hybrid_errs"]) < 1e-5, gloo4["hybrid_errs"]
+
+
+@pytest.mark.parametrize("heads", ["even", "odd"])
+def test_mamba2_model_decodes_on_a_mesh(gloo4, heads):
+    """A reduced Mamba2 on a (2, 2) mesh with FSDP params, with 8 heads
+    ("model" divides them) and with 3 (``ssm._state_step_on_mesh`` then
+    keeps the state whole over "model" and reads out each rank's share of
+    the heads): prefill and two decode steps within 1e-5 of the same model
+    unsharded, and so is the cache after them; each decode step's new
+    state has its cache leaf's placements (no write re-lays the cache out),
+    and the cache keeps prefill's placements."""
+    assert gloo4[f"ssm_{heads}_heads"] == (8 if heads == "even" else 3)
+    errs = gloo4[f"ssm_{heads}_errs"]
+    assert max(errs) < 1e-5, errs
+    assert gloo4[f"ssm_{heads}_writes_kept"]
+    assert gloo4[f"ssm_{heads}_cache_kept"]
 
 
 def test_collective_counter_kinds_and_bytes(gloo4):
@@ -821,6 +886,66 @@ out["step_grad_rel"] = max(
     for a, b in zip(packing.tree_leaves(g2), packing.tree_leaves(g1)))
 out["loss2"] = float(sstep(p2, o2, dbatch, lr)[2]["loss"].full_tensor())
 out["loss2_unsharded"] = float(step(p1, o1, batch, lr)[2]["loss"])
+# EP on a (2, 2, 2) ("pod", "data", "model") mesh, the experts split along
+# their hidden dim over "pod" and "data" (FSDP) and gathered in one
+# collective over the two: y, the router loss and the gradient of a loss
+# against the unsharded routing of each of the 4 data ranks' tokens
+mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu")
+fs = ("pod", "data")
+specs3 = {"router": (fs, None), "w_gate": ("model", None, fs),
+          "w_up": ("model", None, fs), "w_down": ("model", fs, None)}
+p3 = {k: sharding.local_shard(v, mesh3, sharding.placements(
+    specs3[k], mesh3)).detach().requires_grad_() for k, v in p.items()}
+x3 = sharding.local_shard(x, mesh3, pl(mesh3, data=0)).requires_grad_()
+cfg.moe = m
+y3, aux3 = transformer._ep_moe_call(p3, x3, cfg,
+                                    ParallelCtx(mesh=mesh3, ep=True))
+g3 = torch.autograd.grad((y3 * y3).sum() + 0.1 * aux3, [*p3.values(), x3])
+
+def quarters(p, x):
+    ys, auxs = zip(*(moe.moe_routed(p, c, m) for c in x.chunk(4)))
+    return torch.cat(ys), sum(auxs) / 4
+
+def loss_quarters(p, x):
+    y, aux = quarters(p, x)
+    return (y * y).sum() + 0.1 * aux
+wy3, waux3 = quarters(p, x)
+gp3, gx3 = torch.func.grad(loss_quarters, argnums=(0, 1))(p, x)
+out["ep3_err"] = max(float((y3.full_tensor() - wy3).abs().max()),
+                     abs(float(aux3.full_tensor()) - float(waux3)))
+out["ep3_grad_rel"] = max(
+    float((g.full_tensor() - w).abs().max() / w.abs().max())
+    for g, w in zip(g3, [*(gp3[k] for k in p3), gx3]))
+out["ep3_grad_placements"] = all(
+    g.placements == q.placements for g, q in zip(g3, p3.values()))
+# the reduced DeepSeekMoE-16B with 8 dropless experts 16 wide, serving on
+# the (2, 2, 2) mesh under EP: prefill, then two decode steps routed row
+# by row, as the server decodes, against the same model unsharded
+dcfg = dataclasses.replace(mcfg, moe=dataclasses.replace(
+    mcfg.moe, num_experts=8, top_k=2, expert_d_ff=16, capacity_factor=0.0))
+dplain = Model(dcfg, device="cpu")
+params = dplain.init(torch.Generator().manual_seed(3))
+dsm = Model(dcfg, pctx=ParallelCtx(mesh=mesh3, ep=True), device="cpu")
+dp3 = sharding.distribute_local(params, mesh3, sharding.param_shardings(
+    mesh3, params))
+place3 = lambda b: sharding.distribute_local(  # noqa: E731
+    b, mesh3, sharding.batch_shardings(mesh3, b, 4))
+gen = torch.Generator().manual_seed(3)
+dbatch = {"tokens": torch.randint(0, 512, (4, 16), generator=gen)}
+errs = []
+with torch.no_grad():
+    want, cache = dplain.prefill(params, dbatch, 32)
+    got, dcache = dsm.prefill(dp3, place3(dbatch), 32)
+    errs.append(float((got.full_tensor() - want).abs().max()))
+    for i in range(2):
+        step3 = {"tokens": torch.randint(0, 512, (4, 1), generator=gen),
+                 "pos": torch.full((4,), 16 + i)}
+        want, cache = dplain.decode_step(params, step3, cache,
+                                         route_rows=True)
+        got, dcache = dsm.decode_step(dp3, place3(step3), dcache,
+                                      route_rows=True)
+        errs.append(float((got.full_tensor() - want).abs().max()))
+out["ep3_serve_errs"] = errs
 """
 
 
@@ -871,3 +996,25 @@ def test_sharded_train_step_on_8_ranks(ref, gloo8):
     assert gloo8["step_grad_rel"] < 1e-5
     assert gloo8["placements_kept"]
     assert abs(gloo8["loss2"] - gloo8["loss2_unsharded"]) < 1e-5
+
+
+def test_expert_parallelism_on_two_pods(gloo8):
+    """EP on a (2, 2, 2) ("pod", "data", "model") mesh with the experts
+    split over "pod" and "data" along their hidden dim, gathered in one
+    collective over the two (``sharding.over_data_axes``): y and the
+    router loss within 1e-5 of the unsharded routing of each data rank's
+    tokens, and the gradient within 1e-5 relative to each leaf's largest
+    entry, handed back on each leaf's own placements (one reduce-scatter
+    over the same group)."""
+    assert gloo8["ep3_err"] < 1e-5, gloo8["ep3_err"]
+    assert gloo8["ep3_grad_rel"] < 1e-5, gloo8["ep3_grad_rel"]
+    assert gloo8["ep3_grad_placements"]
+
+
+def test_expert_parallel_serving_on_two_pods(gloo8):
+    """The reduced DeepSeekMoE-16B (8 dropless experts) on the (2, 2, 2)
+    mesh under EP, its experts split over "pod" and "data" along their
+    hidden dim: prefill and two decode steps routed row by row, within
+    1e-5 of the same model unsharded."""
+    errs = gloo8["ep3_serve_errs"]
+    assert len(errs) == 3 and max(errs) < 1e-5, errs
