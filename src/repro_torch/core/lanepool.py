@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import checkpointer as ck
-from repro_torch.core import packing
+from repro_torch.core import packing, spans
 from repro_torch.core.repack import RepackController
 
 
@@ -321,12 +321,16 @@ class RefillExecutor:
     advances a COPY of the lane's state; first result wins, the loser is
     cancelled — exactly one ``on_finish`` fires, and twin metrics are
     suppressed.
+
+    Traced (``core.spans``), each iteration is a ``pool.iteration`` span
+    (attrs ``step``, ``active``, ``capacity``) holding ``pool.refill``
+    (attr ``attached``: lanes attached), ``pool.batch``, ``pool.step`` and
+    ``pool.retire``.
     """
 
     def __init__(self, pool: LanePool, *,
                  on_metrics: Optional[Callable[[LaneTask, int, Any], bool]] = None,
                  on_finish: Optional[Callable[[LaneTask, Any, Any], None]] = None,
-                 on_step_start: Optional[Callable[[], None]] = None,
                  on_step: Optional[Callable[[int, int, int], None]] = None,
                  checkpoint_every: int = 0,
                  on_checkpoint: Optional[Callable[[LaneTask, Any, Any],
@@ -341,8 +345,7 @@ class RefillExecutor:
         self.pool = pool
         self.on_metrics = on_metrics
         self.on_finish = on_finish
-        self.on_step_start = on_step_start      # brackets pool.step for
-        self.on_step = on_step          # timing: (global, active, capacity)
+        self.on_step = on_step          # (global, active, capacity)
         self.checkpoint_every = checkpoint_every
         self.on_checkpoint = on_checkpoint
         self.should_preempt = should_preempt
@@ -525,81 +528,92 @@ class RefillExecutor:
         lane_task: List[Optional[LaneTask]] = [None] * pool.capacity
         stats = RefillStats()
         while queue or any(t is not None for t in lane_task):
-            self._refill(queue, lane_task, stats)
-            self._speculate(queue, lane_task, stats)
-            if self._zero_batch is None and all(
-                    t is None for t in lane_task):
-                break                   # nothing attachable (empty task set)
-            if self.record_history:
-                for lane, t in enumerate(lane_task):
-                    if t is not None:
-                        self.history.append((stats.global_steps, lane, t.id))
-            batch = self._stacked_batch(lane_task)
-            if self.on_step_start is not None:
-                self.on_step_start()
-            metrics = pool.step(batch)
-            n_attached = sum(1 for t in lane_task if t is not None)
-            n_twin = sum(1 for l in self._spec_lanes
-                         if lane_task[l] is not None)
-            stats.lane_steps += n_attached - n_twin
-            stats.spec_lane_steps += n_twin
-            if self.on_step is not None:    # occupancy counts twins: they
-                self.on_step(stats.global_steps,   # really hold lanes
-                             n_attached, pool.capacity)
-            stats.global_steps += 1
-            # retire primaries BEFORE speculative twins: when both hit
-            # budget in the same pass the primary delivers the final
-            # on_metrics/on_finish and cancels the twin
-            order = [l for l in range(len(lane_task))
-                     if l not in self._spec_lanes]
-            order += [l for l in range(len(lane_task))
-                      if l in self._spec_lanes]
-            for lane in order:
-                t = lane_task[lane]
-                if t is None:
-                    continue
-                is_twin = lane in self._spec_lanes
-                stop = False
-                if self.on_metrics is not None and not is_twin:
-                    lm = packing.lane_slice(metrics, lane)
-                    stop = bool(self.on_metrics(t, t.step_done, lm))
-                t.step_done += 1
-                if stop:
-                    t.stopped_early = True
-                if t.step_done >= t.steps or stop:
-                    params, opt_state = pool.detach(lane)
-                    lane_task[lane] = None
-                    self._cancel_twin(lane, lane_task, stats)
-                    if self.on_finish is not None:
-                        self.on_finish(t, params, opt_state)
-                    # the detached copy must not live on through the next
-                    # refill and step: at a full-width model it is a lane
-                    del params, opt_state
-                elif (self.checkpoint_every
-                      and self.on_checkpoint is not None
-                      and not is_twin
-                      and t.step_done % self.checkpoint_every == 0):
-                    self.on_checkpoint(
-                        t, packing.tree_get_lane(pool.params, lane),
-                        packing.tree_get_lane(pool.opt_state, lane))
-            if self._preempt_requested or (
-                    self.should_preempt is not None
-                    and self.should_preempt(stats)):
-                self._preempt_requested = False
-                self.snapshot = self._drain(queue, lane_task, stats)
-                stats.preempted = True
-                break
-            # online elastic repack: telemetry in, capacity decision out
-            if self.repack is not None:
-                self.repack.observe(stats.global_steps, n_attached,
-                                    pool.capacity, len(queue))
-                live = sum(1 for t in lane_task if t is not None)
-                new_cap = self.repack.decide(stats.global_steps,
-                                             pool.capacity, len(queue), live)
-                if new_cap is not None and new_cap != pool.capacity:
-                    lane_task = self._repack(queue, lane_task, new_cap,
-                                             stats)
-                    pool = self.pool
+            with spans.span("pool.iteration", step=stats.global_steps,
+                            capacity=pool.capacity) as it:
+                with spans.span("pool.refill") as sp:
+                    before = stats.attaches + stats.spec_attaches
+                    self._refill(queue, lane_task, stats)
+                    self._speculate(queue, lane_task, stats)
+                    sp.set(attached=stats.attaches + stats.spec_attaches
+                           - before)
+                if self._zero_batch is None and all(
+                        t is None for t in lane_task):
+                    break               # nothing attachable (empty task set)
+                if self.record_history:
+                    for lane, t in enumerate(lane_task):
+                        if t is not None:
+                            self.history.append((stats.global_steps, lane,
+                                                 t.id))
+                with spans.span("pool.batch"):
+                    batch = self._stacked_batch(lane_task)
+                with spans.span("pool.step"):
+                    metrics = pool.step(batch)
+                n_attached = sum(1 for t in lane_task if t is not None)
+                it.set(active=n_attached)
+                n_twin = sum(1 for l in self._spec_lanes
+                             if lane_task[l] is not None)
+                stats.lane_steps += n_attached - n_twin
+                stats.spec_lane_steps += n_twin
+                if self.on_step is not None:    # occupancy counts twins:
+                    self.on_step(stats.global_steps,   # they really hold
+                                 n_attached, pool.capacity)    # lanes
+                stats.global_steps += 1
+                # retire primaries BEFORE speculative twins: when both hit
+                # budget in the same pass the primary delivers the final
+                # on_metrics/on_finish and cancels the twin
+                order = [l for l in range(len(lane_task))
+                         if l not in self._spec_lanes]
+                order += [l for l in range(len(lane_task))
+                          if l in self._spec_lanes]
+                with spans.span("pool.retire"):
+                    for lane in order:
+                        t = lane_task[lane]
+                        if t is None:
+                            continue
+                        is_twin = lane in self._spec_lanes
+                        stop = False
+                        if self.on_metrics is not None and not is_twin:
+                            lm = packing.lane_slice(metrics, lane)
+                            stop = bool(self.on_metrics(t, t.step_done, lm))
+                        t.step_done += 1
+                        if stop:
+                            t.stopped_early = True
+                        if t.step_done >= t.steps or stop:
+                            params, opt_state = pool.detach(lane)
+                            lane_task[lane] = None
+                            self._cancel_twin(lane, lane_task, stats)
+                            if self.on_finish is not None:
+                                self.on_finish(t, params, opt_state)
+                            # the detached copy must not live on through
+                            # the next refill and step: at a full-width
+                            # model it is a lane
+                            del params, opt_state
+                        elif (self.checkpoint_every
+                              and self.on_checkpoint is not None
+                              and not is_twin
+                              and t.step_done % self.checkpoint_every == 0):
+                            self.on_checkpoint(
+                                t, packing.tree_get_lane(pool.params, lane),
+                                packing.tree_get_lane(pool.opt_state, lane))
+                if self._preempt_requested or (
+                        self.should_preempt is not None
+                        and self.should_preempt(stats)):
+                    self._preempt_requested = False
+                    self.snapshot = self._drain(queue, lane_task, stats)
+                    stats.preempted = True
+                    break
+                # online elastic repack: telemetry in, capacity decision out
+                if self.repack is not None:
+                    self.repack.observe(stats.global_steps, n_attached,
+                                        pool.capacity, len(queue))
+                    live = sum(1 for t in lane_task if t is not None)
+                    new_cap = self.repack.decide(stats.global_steps,
+                                                 pool.capacity, len(queue),
+                                                 live)
+                    if new_cap is not None and new_cap != pool.capacity:
+                        lane_task = self._repack(queue, lane_task, new_cap,
+                                                 stats)
+                        pool = self.pool
         stats.n_traces = self._trace_base + pool.n_traces
         return stats
 

@@ -46,6 +46,8 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import spans
+
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of dicts and lists (tuples are leaves)."""
@@ -138,15 +140,17 @@ def masked_step(step_fn: Callable) -> Callable:
     bit-identically (``torch.where`` keeps the old values); an active
     lane's result is exactly ``step_fn``'s: lanes are independent under
     vmap, so values on other lanes (garbage, zeros, NaN) cannot leak in.
+    The select is the span ``pool.select`` (``core.spans``).
     """
     def step(params, opt_state, batch, hparams, active):
         new_p, new_o, metrics = step_fn(params, opt_state, batch, hparams)
         # the stepped trees as lists of leaves: _keep_active drops each
         # stepped leaf once its selected copy exists
         new_p, new_o = tree_leaves(new_p), tree_leaves(new_o)
-        return (_keep_active(active, new_p, params),
-                _keep_active(active, new_o, opt_state),
-                metrics)
+        with spans.span("pool.select"):
+            params = _keep_active(active, new_p, params)
+            opt_state = _keep_active(active, new_o, opt_state)
+        return params, opt_state, metrics
     return step
 
 

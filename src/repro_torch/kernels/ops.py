@@ -19,11 +19,15 @@ runs and ``ref.mask_lanes`` where-zeroes inactive lanes afterwards, as the
 reference's XLA path does. ``packed_matmul`` and ``packed_norm`` are the
 building blocks of the pool's "kernel" execution mode
 (``core.packing.masked_pool_step``).
+
+Each entry point is a span ``op.<name>`` (``core.spans``) with its
+arguments' shapes and dtype.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_rmsnorm as rn
 from repro_torch.kernels import packed_gemm as pg
@@ -130,8 +134,10 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, *,
     (B,), optional) treats the batch dim as the lane axis; inactive lanes'
     outputs are exact zeros and active lanes are bit-identical to the
     unmasked call. With ``active=None`` no predicate reaches the kernel."""
-    return _FlashAttention.apply(q, k, v, _lane_predicate(active, q), causal,
-                                 window)
+    with spans.span("op.flash_attention", q=q.shape, k=k.shape,
+                    dtype=q.dtype):
+        return _FlashAttention.apply(q, k, v, _lane_predicate(active, q),
+                                     causal, window)
 
 
 def ssd(x, dt, A, B, C, *, chunk: int = 128, active=None, init_state=None):
@@ -141,19 +147,24 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, active=None, init_state=None):
     inactive lanes' y AND final state are exact zeros, active lanes
     bit-identical to the call without it. With ``active=None`` no predicate
     reaches the kernel."""
-    return sd.ssd_scan(x, dt, A, B, C, chunk=chunk,
-                       active=_lane_predicate(active, x),
-                       init_state=init_state)
+    with spans.span("op.ssd", x=x.shape, B=B.shape, dtype=x.dtype):
+        return sd.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                           active=_lane_predicate(active, x),
+                           init_state=init_state)
 
 
 def packed_matmul(x, w, *, active=None):
     """x (J,M,K) @ w (J,K,N) per job. ``active`` (bool/int (J,), optional)
     makes inactive lanes exact zeros: inside the kernel on CUDA, by
     where-zero after the plain version on the CPU."""
-    return pg.packed_gemm(x, w, active=_lane_predicate(active, x))
+    with spans.span("op.packed_matmul", x=x.shape, w=w.shape,
+                    dtype=x.dtype):
+        return pg.packed_gemm(x, w, active=_lane_predicate(active, x))
 
 
 def packed_norm(x, w, *, active=None, eps: float = 1e-5):
     """Lane-batched RMSNorm: x (J,rows,d), per-lane weights w (J,d). Same
     ``active`` contract as packed_matmul (inactive lanes -> zeros)."""
-    return rn.packed_rmsnorm(x, w, active=_lane_predicate(active, x), eps=eps)
+    with spans.span("op.packed_norm", x=x.shape, dtype=x.dtype):
+        return rn.packed_rmsnorm(x, w, active=_lane_predicate(active, x),
+                                 eps=eps)

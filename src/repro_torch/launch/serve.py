@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import packing, spans
 from repro_torch.models.model import Model
 
 
@@ -96,6 +96,12 @@ class BatchServer:
     steps: as the request tail drains, live lanes are compacted into a
     smaller pool (lane counts rounded to powers of two) so the step stops
     paying for dead lanes. Per-request tokens are unchanged.
+
+    Traced (``core.spans``), each loop is a ``serve.iteration`` span
+    holding ``serve.emit`` (emit and retire), ``serve.decode_step`` (and in
+    it ``serve.read``, the tokens' read on the host), ``serve.resize``, and
+    per request (``req``) ``serve.prefill``, at the bounds of
+    ``ServeStats.prefill_s``, and ``serve.attach``, the lane write.
     """
 
     def __init__(self, model: Model, params, batch_lanes: int, max_len: int,
@@ -137,12 +143,13 @@ class BatchServer:
         def prefill_one(r: Request):
             toks = np.zeros((1, S_pad), np.int64)
             toks[0, S_pad - len(r.prompt):] = r.prompt   # left-pad
-            t0 = time.perf_counter()
-            logits, cache = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(dev)},
-                max_len=self.max_len)
-            first = int(logits.argmax(-1)[0])
-            stats.prefill_s += time.perf_counter() - t0
+            with spans.span("serve.prefill", req=r.id):
+                t0 = time.perf_counter()
+                logits, cache = self.model.prefill(
+                    self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                    max_len=self.max_len)
+                first = int(logits.argmax(-1)[0])
+                stats.prefill_s += time.perf_counter() - t0
             stats.prefills += 1
             return first, packing.tree_get_lane(cache, 0, axes)
 
@@ -157,7 +164,8 @@ class BatchServer:
         def attach(lane: int, r: Request, first=None, cache=None):
             if first is None:
                 first, cache = prefill_one(r)
-            packing.tree_set_lane(pool_cache, lane, cache, axes)
+            with spans.span("serve.attach", req=r.id):
+                packing.tree_set_lane(pool_cache, lane, cache, axes)
             cur[lane] = first
             pos[lane] = S_pad
             lane_req[lane] = r
@@ -191,44 +199,50 @@ class BatchServer:
                 attach(lane, queue.pop(0))
 
         while True:
-            # emit + retire phase: the token each active lane carries came
-            # from the PREVIOUS step (or its prefill). Record it, and
-            # retire lanes whose budget is now exhausted BEFORE stepping.
-            for lane, r in enumerate(lane_req):
-                if r is None:
-                    continue
-                r.out.append(int(cur[lane]))
-                stats.lane_steps += 1
-                if len(r.out) >= r.max_new:
-                    r.done = True        # lane frees NOW — no wave barrier
-                    lane_req[lane] = None
-            n_live = sum(1 for r in lane_req if r is not None)
-            if n_live == 0 and not queue:
-                break
-            if self.adaptive_lanes:
-                demand = n_live + len(queue)
-                desired = 1 << (max(1, demand) - 1).bit_length()
-                desired = min(self.lanes, max(desired, n_live, 1))
-                if desired < C:
-                    resize(desired)
-            if n_live:
-                active = np.array([r is not None for r in lane_req])
-                t0 = time.perf_counter()
-                logits, pool_cache = self.model.decode_step(
-                    self.params,
-                    {"tokens": torch.from_numpy(cur[:, None]).to(dev),
-                     "pos": torch.from_numpy(pos).to(dev)},
-                    pool_cache, route_rows=True)
-                nxt = logits.argmax(-1).cpu().numpy()            # (C,)
-                stats.decode_s += time.perf_counter() - t0
-                stats.global_steps += 1
-                stats.lane_slots += C
-                cur[active] = nxt[active]
-                pos[active] += 1         # inactive lanes stay frozen
-            # refill phase — strictly AFTER the step: a joiner's first
-            # token (from its prefill) sits in ``cur`` and must be emitted
-            # next iteration before the lane is ever stepped
-            for lane, r in enumerate(lane_req):
-                if r is None and queue:  # waiting request joins mid-decode
-                    attach(lane, queue.pop(0))
+            with spans.span("serve.iteration", step=stats.global_steps):
+                # emit + retire phase: the token each active lane carries
+                # came from the PREVIOUS step (or its prefill). Record it,
+                # and retire lanes whose budget is now exhausted BEFORE
+                # stepping.
+                with spans.span("serve.emit"):
+                    for lane, r in enumerate(lane_req):
+                        if r is None:
+                            continue
+                        r.out.append(int(cur[lane]))
+                        stats.lane_steps += 1
+                        if len(r.out) >= r.max_new:
+                            r.done = True    # lane frees NOW — no barrier
+                            lane_req[lane] = None
+                n_live = sum(1 for r in lane_req if r is not None)
+                if n_live == 0 and not queue:
+                    break
+                if self.adaptive_lanes:
+                    demand = n_live + len(queue)
+                    desired = 1 << (max(1, demand) - 1).bit_length()
+                    desired = min(self.lanes, max(desired, n_live, 1))
+                    if desired < C:
+                        with spans.span("serve.resize", lanes=desired):
+                            resize(desired)
+                if n_live:
+                    active = np.array([r is not None for r in lane_req])
+                    with spans.span("serve.decode_step", lanes=C):
+                        t0 = time.perf_counter()
+                        logits, pool_cache = self.model.decode_step(
+                            self.params,
+                            {"tokens": torch.from_numpy(cur[:, None]).to(dev),
+                             "pos": torch.from_numpy(pos).to(dev)},
+                            pool_cache, route_rows=True)
+                        with spans.span("serve.read"):
+                            nxt = logits.argmax(-1).cpu().numpy()    # (C,)
+                        stats.decode_s += time.perf_counter() - t0
+                    stats.global_steps += 1
+                    stats.lane_slots += C
+                    cur[active] = nxt[active]
+                    pos[active] += 1     # inactive lanes stay frozen
+                # refill phase — strictly AFTER the step: a joiner's first
+                # token (from its prefill) sits in ``cur`` and must be
+                # emitted next iteration before the lane is ever stepped
+                for lane, r in enumerate(lane_req):
+                    if r is None and queue:  # a waiting request joins
+                        attach(lane, queue.pop(0))
         return results

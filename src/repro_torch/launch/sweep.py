@@ -309,7 +309,6 @@ def run_sweep(model: Model, tasks: Sequence[SweepTask], *,
             ck.wait()
 
         def on_step(global_step: int, active: int, capacity: int):
-            mon.end_step(global_step)
             if gauges is not None:
                 gauges.on_lane_sample(tenant, gang, active, capacity)
 
@@ -326,7 +325,7 @@ def run_sweep(model: Model, tasks: Sequence[SweepTask], *,
 
         ex = RefillExecutor(
             pool, on_metrics=on_metrics, on_finish=on_finish,
-            on_step_start=mon.start_step, on_step=on_step,
+            on_step=on_step,
             checkpoint_every=(policy.checkpoint_every
                               if checkpoint_dir else 0),
             on_checkpoint=on_checkpoint if checkpoint_dir else None,

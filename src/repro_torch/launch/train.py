@@ -26,7 +26,7 @@ import torch
 
 from repro_torch import optim
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.core import packing
+from repro_torch.core import packing, spans
 from repro_torch.core.monitor import RunMonitor
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.model import Model
@@ -35,17 +35,21 @@ from repro_torch.models.model import Model
 def make_train_step(model: Model, opt: optim.Optimizer) -> Callable:
     """(params, opt_state, batch, lr) -> (params, opt_state, metrics),
     differentiated by ``mesh_grads`` for DTensor params and by
-    ``torch.func`` otherwise."""
+    ``torch.func`` otherwise. Traced (``core.spans``): ``train.grad`` (the
+    forward and backward) and ``train.update`` (the global norm, the
+    optimizer, the update); under a pool's vmap, once a pool step."""
 
     def train_step(params, opt_state, batch, lr):
-        if _on_mesh(params):
-            grads, metrics = mesh_grads(model.loss, params, batch)
-        else:
-            grads, (_, metrics) = torch.func.grad_and_value(
-                model.loss, has_aux=True)(params, batch)
-        metrics = dict(metrics, grad_norm=optim.global_norm(grads))
-        updates, opt_state = opt.update(grads, opt_state, params, lr)
-        params = optim.apply_updates(params, updates)
+        with spans.span("train.grad"):
+            if _on_mesh(params):
+                grads, metrics = mesh_grads(model.loss, params, batch)
+            else:
+                grads, (_, metrics) = torch.func.grad_and_value(
+                    model.loss, has_aux=True)(params, batch)
+        with spans.span("train.update"):
+            metrics = dict(metrics, grad_norm=optim.global_norm(grads))
+            updates, opt_state = opt.update(grads, opt_state, params, lr)
+            params = optim.apply_updates(params, updates)
         return params, opt_state, metrics
 
     return train_step

@@ -14,6 +14,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import spans
 from repro_torch.distributed.sharding import is_dtensor
 
 
@@ -173,10 +174,13 @@ def at_use(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     its shards in the layer's backward; a cast commutes with a gather, so
     the values are the same. One that takes none (serving) is left to
     DTensor's placement, which moves a step's activation rows and not
-    the weights."""
+    the weights. A cast is counted in ``cast_bytes`` (``core.spans``): the
+    bytes it reads, under vmap a lane's."""
     if is_dtensor(w) and w.requires_grad:
         from repro_torch.distributed.sharding import fsdp_gather
         w = fsdp_gather(w)
+    if w.dtype != dtype:
+        spans.count("cast_bytes", w.numel() * w.element_size())
     return w.to(dtype)
 
 

@@ -50,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core import spans
 from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.transformer import ParallelCtx
 
@@ -181,10 +182,15 @@ class Model:
         head: GSPMD's dot partitioner made full-vocab (B, S, V) f32
         tensors there. A rank's gradient of h is its vocab shard's share
         (partial over "model"); its gradient of the weight is its rows'
-        share (partial over the data axes when they split the batch)."""
+        share (partial over the data axes when they split the batch).
+        The weight's cast to the compute dtype is counted in
+        ``cast_bytes`` (``core.spans``), as ``layers.at_use`` counts."""
         h = layers.rms_norm(h, params["final_ln"], self.cfg.norm_eps)
-        w = (params["embed"].T if self.cfg.tie_embeddings
-             else params["unembed"]).to(self.cdt)
+        w = params["embed"].T if self.cfg.tie_embeddings \
+            else params["unembed"]
+        if w.dtype != self.cdt:
+            spans.count("cast_bytes", w.numel() * w.element_size())
+        w = w.to(self.cdt)
         if self.pctx.mesh is not None and transformer.is_dtensor(h):
             from torch.distributed.tensor.experimental import local_map
 

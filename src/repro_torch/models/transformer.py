@@ -32,6 +32,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import spans
 from repro_torch.core.packing import (lane_slice, tree_leaves,
                                      tree_map, tree_unflatten)
 from repro_torch.distributed.sharding import is_dtensor
@@ -220,10 +221,17 @@ def _write(cache: dict, new: dict) -> None:
     tree_map(lambda dst, src: dst.copy_(src), cache, new)
 
 
-def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
-              window: int = 0, causal: bool = True, cache=None,
-              pctx: ParallelCtx, route_rows: bool = False,
-              mrope_positions=None, enc_memory=None):
+def block_fwd(p: dict, x, cfg: ModelConfig, kind: str, **kw):
+    """One block of ``kind`` (``_block``), traced as the span ``model.block``
+    (``core.spans``)."""
+    with spans.span("model.block", kind=kind):
+        return _block(p, x, cfg, kind, **kw)
+
+
+def _block(p: dict, x, cfg: ModelConfig, kind: str, *, positions,
+           window: int = 0, causal: bool = True, cache=None,
+           pctx: ParallelCtx, route_rows: bool = False,
+           mrope_positions=None, enc_memory=None):
     """One block of ``kind`` ("dense", "moe", "ssm" or "cross"). Returns
     (x, cache, aux): aux is the MoE router loss (0 for the other kinds); a
     given cache is updated in place. ``route_rows``: a moe block routes
